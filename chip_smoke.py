@@ -1,0 +1,277 @@
+#!/usr/bin/env python3
+"""Drive lcqpow_tpu_torch's main path on one CUDA card and check it.
+
+Run from the root of a checkout, with one NVIDIA card visible::
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with its seconds:
+
+1. device: the card's name and count, then the raw
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line;
+2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``;
+3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
+   Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
+   (512, 48): max |difference|, bitwise equality, and device times per call
+   (``torch.profiler``) of the kernel, the plain version and
+   ``torch.linalg.inv`` (a yardstick the port never calls) beside the bound,
+   and the kernel's call interval by CUDA events;
+4. main: the warm-up fleet (64 ``random_lcqp(nV=8, nC=2, nComp=2)``
+   instances tiled to B = 4096, bench.py's headline configuration) through
+   ``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
+   escalate=1)``: wall seconds, certified lanes, histogram of ``ret``, mean
+   iterations, the kernel's launches during the solve, and an f64 host audit
+   of the certified lanes;
+5. reference: the warm-up LCQP's known solution, and the first 64 lanes of
+   the fleet solved again on the CPU (plain versions) against the card.
+
+Then one JSON line describing each kernel, and last the line
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
+exits non-zero without printing that line; so it does when no CUDA device
+is available or the package is not beside it.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and FP32
+# (non-tensor-core) operations/s.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+B_MAIN = 4096
+KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48)]
+# Kernel and plain version do the same IEEE float32 operations in the same
+# order (the kernel is built with --fmad=false), so they should agree bit
+# for bit; the check allows a few ulps of the result's scale in case a
+# reciprocal or product rounds differently.
+KERNEL_TOL_REL = 4 * 2.0 ** -23
+MIN_CERTIFIED = 4088
+
+
+def phase(name, t0, msg):
+    print(f"[{name}] {msg} seconds={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call over ``reps`` back-to-back calls, by CUDA
+    events: for a call of a few microseconds this is the host's launch
+    interval, not the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds per call: the time of every kernel the call
+    launches, summed by ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+    if us <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def spd_batch(B, m, seed):
+    """Jacobi-scaled SPD batch, as the solver hands the kernel (chol.py)."""
+    from lcqpow_tpu_torch.ops.chol import _jacobi_scale
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn((B, m, m), generator=g, device="cuda")
+    S = A @ A.mT / m + 0.1 * torch.eye(m, device="cuda")
+    return _jacobi_scale(S)[0].contiguous()
+
+
+def audit(data, sol, compl_tol):
+    """f64 host audit of the certified lanes (lcqpow_tpu/audit.py): the
+    complementarity product (Lx-lbL)'(Rx-lbR) and the violation of the
+    stacked system [A; L; R; box]."""
+    f = {k: getattr(data, k).double().cpu().numpy()
+         for k in ("L", "R", "lbL", "lbR", "A", "lbA", "ubA", "lb", "ub")}
+    x = sol.x.double().cpu().numpy()
+    ok = sol.ret.cpu().numpy() == 0
+    mv = lambda M: np.einsum("bmn,bn->bm", M[ok], x[ok])
+    sL = mv(f["L"]) - f["lbL"][ok]
+    sR = mv(f["R"]) - f["lbR"][ok]
+    phi = np.abs((sL * sR).sum(-1))
+    Ax = mv(f["A"])
+    viol = np.concatenate([
+        f["lbA"][ok] - Ax, Ax - f["ubA"][ok], -sL, -sR,
+        f["lb"][ok] - x[ok], x[ok] - f["ub"][ok]], axis=1).max(axis=1)
+    return float(phi.max()), float(max(viol.max(), 0.0))
+
+
+def main():
+    t_all = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import lcqpow_tpu_torch as lt
+    from lcqpow_tpu_torch import _build
+    from lcqpow_tpu_torch.ops import gj_inverse as gj
+    from lcqpow_tpu_torch.problems import warm_up, warmup_fleet
+
+    # 1. device
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    smi_line = smi.strip().splitlines()[0]
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    phase("device", t0, f"name={kind!r} count={count}")
+    print(smi_line, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    phase("build", t0, f"nvcc_seconds={_build.last_build_seconds:.3f} "
+          f"libs={sorted(p.name for p in paths.values())}")
+
+    # 3. kernel vs plain
+    t0 = time.perf_counter()
+    rows = {}
+    max_err = 0.0
+    for B, m in KERNEL_SHAPES:
+        S = spd_batch(B, m, seed=m)
+        K = gj.gj_inverse(S)
+        P = gj.gj_inverse_plain(S)
+        torch.cuda.synchronize()
+        err = float((K - P).abs().max())
+        scale = float(P.abs().max())
+        bitwise = bool(torch.equal(K, P))
+        eye = torch.eye(m, device="cuda")
+        resid = float((K @ S - eye).abs().max())
+        if not (np.isfinite(err) and err <= KERNEL_TOL_REL * scale):
+            raise AssertionError(f"kernel disagrees at B={B} m={m}: "
+                                 f"max|diff|={err:.3e} scale={scale:.3e}")
+        if not resid < 1e-3:
+            raise AssertionError(f"kernel inverse residual {resid:.3e} "
+                                 f"at B={B} m={m}")
+        max_err = max(max_err, err)
+        call_ms = cuda_ms(lambda: gj.gj_inverse(S), 200)
+        ms = device_ms(lambda: gj.gj_inverse(S), 50)
+        plain_ms = device_ms(lambda: gj.gj_inverse_plain(S), 5)
+        lib_ms = device_ms(lambda: torch.linalg.inv(S), 20)
+        bytes_ms = 2 * B * m * m * 4 / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m ** 3 * B / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows[(B, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[kernel] B={B} m={m} max_abs_diff={err:.3e} "
+              f"bitwise={bitwise} inv_resid={resid:.3e} device_ms: "
+              f"kernel={ms:.5f} plain={plain_ms:.5f} linalg_inv={lib_ms:.5f} "
+              f"bound={bound_ms:.6f} ({bound_by}); kernel_call_ms="
+              f"{call_ms:.5f} (events, back-to-back calls)", flush=True)
+    phase("kernel", t0, f"shapes={len(KERNEL_SHAPES)} max_abs_diff={max_err:.3e}")
+
+    # 4. main path
+    t0 = time.perf_counter()
+    opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=200)
+    data = warmup_fleet(B_MAIN)
+    # One small solve first, so CUDA and cuBLAS set-up stays out of the
+    # main run's time.
+    lt.solve_batch_mixed(warmup_fleet(64), opts, n_corrector_iters=6)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    gj.launch_count = 0
+    t1 = time.perf_counter()
+    sol = lt.solve_batch_mixed(data, opts, n_corrector_iters=6, escalate=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = gj.launch_count
+    ret = sol.ret.cpu().numpy()
+    certified = int((ret == 0).sum())
+    hist = {int(k): int(v) for k, v in zip(*np.unique(ret, return_counts=True))}
+    if tuple(sol.x.shape) != (B_MAIN, 8) or not bool(
+            torch.isfinite(sol.x[sol.ret == 0]).all()):
+        raise AssertionError("main path: bad x shape or non-finite x")
+    max_phi, max_viol = audit(data, sol, opts.complementarity_tolerance)
+    print(f"[main] B={B_MAIN} wall_s={wall:.3f} setup_s={t_setup:.3f} "
+          f"certified={certified}/{B_MAIN} ret_hist={hist} "
+          f"mean_iter_total={float(sol.stats.iter_total.float().mean()):.4f} "
+          f"mean_iter_outer={float(sol.stats.iter_outer.float().mean()):.4f} "
+          f"mean_corrector_steps="
+          f"{float(sol.stats.corrector_steps.float().mean()):.4f} "
+          f"stages={torch.bincount(sol.stats.certified_stage).tolist()} "
+          f"gj_launches={launches} audit_max_phi={max_phi:.3e} "
+          f"audit_max_violation={max_viol:.3e}", flush=True)
+    if certified < MIN_CERTIFIED:
+        raise AssertionError(f"only {certified} of {B_MAIN} lanes certified")
+    if launches <= 0:
+        raise AssertionError("the main path never launched the GJ kernel")
+    if not (max_phi <= opts.complementarity_tolerance and max_viol <= 1e-9):
+        raise AssertionError(f"f64 audit failed: phi={max_phi:.3e} "
+                             f"violation={max_viol:.3e}")
+    phase("main", t0, f"certified={certified}")
+
+    # 5. reference checks
+    t0 = time.perf_counter()
+    wu = lt.solve_batch_mixed(lt.stack_lcqps([warm_up()]), opts)
+    x = wu.x[0].cpu().numpy()
+    if not (int(wu.ret[0]) == 0
+            and int(wu.algo_status[0]) == lt.AlgorithmStatus.S_STATIONARY_SOLUTION
+            and min(np.abs(x - [1, 0]).max(), np.abs(x - [0, 1]).max()) < 1e-10):
+        raise AssertionError(f"warm-up LCQP: x={x} ret={int(wu.ret[0])}")
+    sub = data.map(lambda a: a[:64].cpu())
+    cpu = lt.solve_batch_mixed(sub, opts, n_corrector_iters=6, escalate=1)
+    both = (cpu.ret == 0) & (sol.ret[:64].cpu() == 0)
+    dx = float((cpu.x - sol.x[:64].cpu()).abs()[both].max())
+    same_ret = int((cpu.ret == sol.ret[:64].cpu()).sum())
+    print(f"[reference] warm_up x={x.round(12).tolist()} S-stationary; "
+          f"cpu-vs-card lanes=64 same_ret={same_ret} both_certified="
+          f"{int(both.sum())} max_abs_dx={dx:.3e}", flush=True)
+    if not (same_ret == 64 and dx <= 1e-9):
+        raise AssertionError("card and CPU runs of the port disagree")
+    phase("reference", t0, "ok")
+
+    main_row = rows[(4096, 14)]
+    print(json.dumps({"kernels": [{
+        "name": "gj_inverse",
+        "route": "cuda",
+        "source": "lcqpow_tpu_torch/csrc/gj_inverse.cu",
+        "replaces": "lcqpow_tpu/ops/pallas_inverse.py:40",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shape": [4096, 14, 14],
+    }]}))
+    print(f"[total] seconds={time.perf_counter() - t_all:.3f}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
