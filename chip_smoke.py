@@ -9,19 +9,24 @@ Phases, each printing one line with its seconds:
 
 1. device: the card's name and count, then the raw
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line;
-2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``;
+2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``,
+   and ptxas's registers and spills of the kernels at m = 8, 14, 32, 48;
 3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
    Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
-   (512, 48): max |difference|, bitwise equality, and device times per call
-   (``torch.profiler``) of the kernel, the plain version and
-   ``torch.linalg.inv`` (a yardstick the port never calls) beside the bound,
-   and the kernel's call interval by CUDA events;
+   (512, 48), (4096, 32) and, for the launch-plus-latency floor of one
+   matrix, (1, 8) and (1, 14): bitwise equality (required), and device
+   times per call (``torch.profiler``) beside the bound: of the kernel with
+   the L2 cache flushed before each call, so that its inputs come from
+   device memory as the bound assumes, and with them warm in L2; of the
+   plain version and ``torch.linalg.inv`` (a yardstick the port never
+   calls), warm; and the kernel's call interval by CUDA events;
 4. main: the warm-up fleet (64 ``random_lcqp(nV=8, nC=2, nComp=2)``
    instances tiled to B = 4096, bench.py's headline configuration) through
    ``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
    escalate=1)``: wall seconds, certified lanes, histogram of ``ret``, mean
-   iterations, the kernel's launches during the solve, and an f64 host audit
-   of the certified lanes;
+   iterations, the kernel's launches during the solve (in all and by matrix
+   order), and an f64 host audit of the certified lanes.  Lanes, launches
+   and iteration totals must equal ``MAIN_EXPECTED``;
 5. reference: the warm-up LCQP's known solution, and the first 64 lanes of
    the fleet solved again on the CPU (plain versions) against the card.
 
@@ -32,6 +37,7 @@ is available or the package is not beside it.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,13 +51,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 B_MAIN = 4096
-KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48)]
+KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48), (4096, 32),
+                 (1, 8), (1, 14)]
 # Kernel and plain version do the same IEEE float32 operations in the same
-# order (the kernel is built with --fmad=false), so they should agree bit
-# for bit; the check allows a few ulps of the result's scale in case a
-# reciprocal or product rounds differently.
-KERNEL_TOL_REL = 4 * 2.0 ** -23
-MIN_CERTIFIED = 4088
+# order (the kernel is built with --fmad=false), so the kernel is held to
+# bit-for-bit equality with the plain version: tolerance 0.
+# The main path's outcome, the same in every run since the port began (the
+# kernel is bit for bit its plain version, the rest deterministic): any
+# change is a fault.  Sums over the lanes: means 9.3499 and 2.2363.
+MAIN_EXPECTED = dict(certified=B_MAIN, launches_by_m={8: 6, 14: 132},
+                     iter_total_sum=38297, corrector_steps_sum=9160)
+# Written before each timed kernel call to push its inputs out of L2
+# (50 MB on an H100): 256 MiB of float32.
+FLUSH_FLOATS = 64 * 2 ** 20
+PTXAS_ORDERS = (8, 14, 32, 48)
 
 
 def phase(name, t0, msg):
@@ -74,25 +87,77 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps):
-    """Mean device milliseconds per call: the time of every kernel the call
-    launches, summed by ``torch.profiler`` over ``reps`` calls."""
+def device_ms(fn, reps, kernel=None, flush=None, tries=3):
+    """Mean device milliseconds per call, summed by ``torch.profiler`` over
+    ``reps`` calls: the time of every kernel the call launches or, given
+    ``kernel``, of the kernels whose name holds it.  Given ``flush``,
+    ``flush()`` runs before every call and ``kernel`` keeps its time out.
+    A trace with no such device time (the profiler dropped its events, seen
+    once in several hundred traces) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
+    assert flush is None or kernel is not None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-    if us <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and (kernel is None or kernel in e.key)):
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0.0:
+            return us / reps / 1e3
+    raise AssertionError(f"the profiler recorded no device time in {tries} "
+                         "traces")
+
+
+def bound_ms(B, m):
+    """Least device time of one (B, m, m) inverse: each input byte read
+    and each output byte written once, or 2 m^3 operations a matrix,
+    whichever takes longer; and which of the two it is."""
+    bytes_ms = 2 * B * m * m * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m ** 3 * B / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def ptxas_usage(log, orders):
+    """(kernel, m, vector width) -> (registers, spill stores, spill loads)
+    from nvcc's ``-Xptxas -v`` output, for the GJ kernels of order in
+    ``orders``."""
+    usage, key = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"(gj_[a-z]+_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+                             entry.group(1))
+            key = None
+            if name and int(name.group(2)) in orders:
+                key = (name.group(1), int(name.group(2)),
+                       int(name.group(3) or 0))
+                usage[key] = [None, None, None]
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if key is not None and spill:
+            usage[key][1:] = [int(spill.group(1)), int(spill.group(2))]
+        if key is not None and regs:
+            usage[key][0] = int(regs.group(1))
+    return usage
+
+
+def same_bits(K, P):
+    """Equal values and equal bit patterns (-0 is not +0)."""
+    return bool(torch.equal(K, P)) and bool(
+        torch.equal(K.view(torch.int32), P.view(torch.int32)))
 
 
 def spd_batch(B, m, seed):
@@ -151,6 +216,13 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     paths = _build.build_all()
+    usage = ptxas_usage(paths["gj"].with_suffix(".log").read_text(),
+                        PTXAS_ORDERS)
+    if not usage:
+        raise AssertionError("no ptxas report of the GJ kernels")
+    for (name, m, vec), (regs, st, ld) in sorted(usage.items()):
+        print(f"[ptxas] {name}<{m}{f',{vec}' if vec else ''}> "
+              f"registers={regs} spill_stores={st} spill_loads={ld}")
     phase("build", t0, f"nvcc_seconds={_build.last_build_seconds:.3f} "
           f"libs={sorted(p.name for p in paths.values())}")
 
@@ -158,37 +230,38 @@ def main():
     t0 = time.perf_counter()
     rows = {}
     max_err = 0.0
+    l2 = torch.empty(FLUSH_FLOATS, device="cuda")
     for B, m in KERNEL_SHAPES:
         S = spd_batch(B, m, seed=m)
         K = gj.gj_inverse(S)
         P = gj.gj_inverse_plain(S)
         torch.cuda.synchronize()
         err = float((K - P).abs().max())
-        scale = float(P.abs().max())
-        bitwise = bool(torch.equal(K, P))
+        bitwise = same_bits(K, P)
         eye = torch.eye(m, device="cuda")
         resid = float((K @ S - eye).abs().max())
-        if not (np.isfinite(err) and err <= KERNEL_TOL_REL * scale):
-            raise AssertionError(f"kernel disagrees at B={B} m={m}: "
-                                 f"max|diff|={err:.3e} scale={scale:.3e}")
+        if not bitwise:
+            raise AssertionError(f"kernel and plain version differ at B={B} "
+                                 f"m={m}: max|diff|={err:.3e}")
         if not resid < 1e-3:
             raise AssertionError(f"kernel inverse residual {resid:.3e} "
                                  f"at B={B} m={m}")
         max_err = max(max_err, err)
         call_ms = cuda_ms(lambda: gj.gj_inverse(S), 200)
-        ms = device_ms(lambda: gj.gj_inverse(S), 50)
+        ms = device_ms(lambda: gj.gj_inverse(S), 50, kernel="gj_",
+                       flush=l2.zero_)
+        warm_ms = device_ms(lambda: gj.gj_inverse(S), 50, kernel="gj_")
         plain_ms = device_ms(lambda: gj.gj_inverse_plain(S), 5)
         lib_ms = device_ms(lambda: torch.linalg.inv(S), 20)
-        bytes_ms = 2 * B * m * m * 4 / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * m ** 3 * B / FP32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound, bound_by = bound_ms(B, m)
         rows[(B, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+                            bound_ms=bound, bound_by=bound_by)
         print(f"[kernel] B={B} m={m} max_abs_diff={err:.3e} "
               f"bitwise={bitwise} inv_resid={resid:.3e} device_ms: "
-              f"kernel={ms:.5f} plain={plain_ms:.5f} linalg_inv={lib_ms:.5f} "
-              f"bound={bound_ms:.6f} ({bound_by}); kernel_call_ms="
+              f"kernel={ms:.5f} (L2 flushed) kernel_l2_warm={warm_ms:.5f} "
+              f"plain={plain_ms:.5f} linalg_inv={lib_ms:.5f} "
+              f"bound={bound:.6g} ({bound_by}) share_of_bound="
+              f"{bound / ms:.3f}; kernel_call_ms="
               f"{call_ms:.5f} (events, back-to-back calls)", flush=True)
     phase("kernel", t0, f"shapes={len(KERNEL_SHAPES)} max_abs_diff={max_err:.3e}")
 
@@ -202,13 +275,18 @@ def main():
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     gj.launch_count = 0
+    gj.launch_counts.clear()
     t1 = time.perf_counter()
     sol = lt.solve_batch_mixed(data, opts, n_corrector_iters=6, escalate=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = gj.launch_count
+    launches_by_m = dict(sorted(gj.launch_counts.items()))
     ret = sol.ret.cpu().numpy()
     certified = int((ret == 0).sum())
+    got = dict(certified=certified, launches_by_m=launches_by_m,
+               iter_total_sum=int(sol.stats.iter_total.sum()),
+               corrector_steps_sum=int(sol.stats.corrector_steps.sum()))
     hist = {int(k): int(v) for k, v in zip(*np.unique(ret, return_counts=True))}
     if tuple(sol.x.shape) != (B_MAIN, 8) or not bool(
             torch.isfinite(sol.x[sol.ret == 0]).all()):
@@ -221,12 +299,13 @@ def main():
           f"mean_corrector_steps="
           f"{float(sol.stats.corrector_steps.float().mean()):.4f} "
           f"stages={torch.bincount(sol.stats.certified_stage).tolist()} "
-          f"gj_launches={launches} audit_max_phi={max_phi:.3e} "
+          f"iter_total_sum={got['iter_total_sum']} corrector_steps_sum="
+          f"{got['corrector_steps_sum']} "
+          f"gj_launches={launches} gj_launches_by_m={launches_by_m} "
+          f"audit_max_phi={max_phi:.3e} "
           f"audit_max_violation={max_viol:.3e}", flush=True)
-    if certified < MIN_CERTIFIED:
-        raise AssertionError(f"only {certified} of {B_MAIN} lanes certified")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the GJ kernel")
+    if got != MAIN_EXPECTED:
+        raise AssertionError(f"main path: {got}, expected {MAIN_EXPECTED}")
     if not (max_phi <= opts.complementarity_tolerance and max_viol <= 1e-9):
         raise AssertionError(f"f64 audit failed: phi={max_phi:.3e} "
                              f"violation={max_viol:.3e}")

@@ -5,6 +5,8 @@ Each library is built from the package's ``csrc/`` sources at its first use
 in a process, into ``build/lcqpow_tpu_torch/<hash>/lib<name>.so`` under the
 checkout (``build/`` is git-ignored), where the hash covers the sources and
 the flags, so a changed source is rebuilt and an unchanged one is reused.
+Beside each library, ``lib<name>.log`` keeps nvcc's output, with ptxas's
+registers and spills of every kernel (``-Xptxas -v``).
 The libraries' ``nvcc`` processes start together.  No PyTorch header is
 compiled: a source with a plain C interface builds in seconds, where one
 that includes ``torch/extension.h`` takes minutes.
@@ -26,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "lcqpow_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 #: Library name -> its sources under ``csrc/``.
 LIBRARIES = {"gj": ["gj_inverse.cu"]}
@@ -80,6 +83,7 @@ def build_all() -> dict:
                           f"(exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            paths[name].with_suffix(".log").write_text(log)
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))

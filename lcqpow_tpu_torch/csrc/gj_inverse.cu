@@ -11,29 +11,186 @@
 //   row k <- rowM, rowI.
 // Built with --fmad=false, so every product is rounded before the subtract,
 // as in the plain PyTorch version (ops/gj_inverse.py:gj_inverse_plain); the
-// two agree bit for bit.
+// two agree bit for bit, signed zeros included.
 //
-// What bounds it on an H100: bytes.  Each matrix is read once and written
-// once (2 * m^2 * 4 bytes) for about 2 m^3 operations, under 4 operations
-// per byte at m = 14, far below the ~20 FP32 operations per byte where the
+// What bounds it on an H100.  Bytes: each matrix is read once and written
+// once (2 m^2 4 bytes) for about 2 m^3 operations, under 4 operations per
+// byte at m = 14, far below the ~20 FP32 operations per byte where the
 // card's 67 TFLOP/s would take over from its 3.35 TB/s.  At the solver's
-// shapes (B = 4096, m = 8 or 14) the whole batch is a few MB, so a launch
-// costs a few microseconds whatever the kernel does.
+// shapes (B = 4096, m = 8 or 14) the batch is 1-3 MB, a microsecond of
+// memory time, so what is left is latency: the launch, one round trip to
+// memory, and the chain of m dependent elimination steps of each matrix.
 //
-// What the design does about it: one group of m threads per matrix, thread i
-// holding row i of [M | I] in registers (2m floats); floor(256/m) matrices
-// per block.  The block's matrices are contiguous in memory, so they are
-// staged through shared memory with coalesced loads and stores, and each
-// matrix costs one read and one write of device memory.  At step k the pivot
-// thread publishes its scaled row through shared memory.  m is a template
-// parameter, so the loops over a row unroll and the rows stay in registers.
-// The TPU kernel's lane-major (m, m, 512) tiling and its identity-padded
-// tail lanes are not carried over: groups past the end of the batch load
-// identity rows and store nothing.
+// Orders 1 <= m <= 32 (the solver's 8 and 14): rows in lanes, matrices in
+// warps (gj_warp_kernel).
+// - A matrix takes m consecutive lanes of one warp and lane i holds row i
+//   in registers; a warp holds floor(32/m) matrices.  Blocks are small
+//   (kWarps = 2 warps, measured a little faster than 4 at m = 14) and
+//   many (1024 at (4096, 14)), so every SM holds several and its four
+//   schedulers switch between warps to hide the step chain and the memory
+//   latency, where a 256-thread block per matrix group left the card at
+//   12-25% occupancy.
+// - The pivot row moves between lanes by __shfl_sync.  There is no block
+//   barrier and no shared memory: the m lanes of a matrix run in lockstep
+//   in their warp.  Every lane reads the unscaled pivot row and computes
+//   r = 1/p itself (the same IEEE operation on the same bits in every lane),
+//   so no lane waits for a serial pivot phase and the row's shuffles overlap
+//   the division.  (Letting the pivot lane scale its row first and shuffle
+//   the scaled row takes fewer instructions but was measured slower: every
+//   shuffle then waits for the division.)
+// - Each lane loads its row straight from device memory into registers
+//   with 16- or 8-byte vector loads where m and the pointers allow it, and
+//   stores its row of the inverse the same way.  A warp's matrices are
+//   contiguous, so its loads cover one contiguous span and every warp
+//   overlaps its memory traffic with the other warps' elimination.
+// - In place: lane i keeps m values, not the 2m of [M | I].  Column k of M
+//   is dead after step k and column k of I is e_k until step k, so slot k
+//   takes I[:,k] at step k.  The zeros of I's not yet pivoted columns are
+//   not stored but their signs are: bit j of `neg` is the sign of I[i,j],
+//   updated by the IEEE rules of the products and differences that the
+//   plain version computes on them, so the slot-k value -0/+0 - f*r is the
+//   plain version's to the bit.
+// Lanes past the last matrix of a warp (28-31 at m = 14) and matrices past
+// the end of the batch run the same instructions on identity rows, inside
+// the full shuffle mask, and store nothing.
+//
+// Orders 33 <= m <= 48 (off the solver's main path) keep the block design
+// (gj_block_kernel): a group of m threads per matrix, floor(256/m) matrices
+// per block staged through shared memory, the pivot row published through
+// shared memory between two block barriers per step.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 2;  // warps per block
+constexpr int kWarpMaxM = 32;
+
+// ---- warp design, 1 <= m <= 32 -------------------------------------------
+
+// Floats per vector load and store of an m-float row: rows start at
+// multiples of 4m bytes.
+template <int M>
+constexpr int natural_vec() {
+  return M % 4 == 0 ? 4 : (M % 2 == 0 ? 2 : 1);
+}
+
+template <int M, int V>
+__device__ __forceinline__ void load_row(float (&a)[M], const float* row) {
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int q = 0; q < M / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(row)[q];
+      a[4 * q] = x.x;
+      a[4 * q + 1] = x.y;
+      a[4 * q + 2] = x.z;
+      a[4 * q + 3] = x.w;
+    }
+  } else if constexpr (V == 2) {
+#pragma unroll
+    for (int q = 0; q < M / 2; ++q) {
+      const float2 x = reinterpret_cast<const float2*>(row)[q];
+      a[2 * q] = x.x;
+      a[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < M; ++j) a[j] = row[j];
+  }
+}
+
+template <int M, int V>
+__device__ __forceinline__ void store_row(float* row, const float (&a)[M]) {
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int q = 0; q < M / 4; ++q)
+      reinterpret_cast<float4*>(row)[q] =
+          make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  } else if constexpr (V == 2) {
+#pragma unroll
+    for (int q = 0; q < M / 2; ++q)
+      reinterpret_cast<float2*>(row)[q] = make_float2(a[2 * q], a[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < M; ++j) row[j] = a[j];
+  }
+}
+
+__device__ __forceinline__ unsigned sign_mask(float x) {
+  return (__float_as_uint(x) >> 31) ? kFull : 0u;
+}
+
+template <int M, int V>
+__global__ void __launch_bounds__(kWarps * 32)
+gj_warp_kernel(const float* __restrict__ S, float* __restrict__ out,
+               int batch) {
+  constexpr int G = 32 / M;  // matrices per warp
+  const int lane = threadIdx.x & 31;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * G;
+  if (first >= batch) return;  // the whole warp: no shuffle is left waiting
+  const int g = lane / M;        // matrix within the warp; G for idle lanes
+  const int i = lane - g * M;    // row within the matrix
+  const bool valid = g < G && first + g < batch;
+  // Idle lanes shuffle from group 0, so they divide by a real pivot.
+  const int src0 = g < G ? g * M : 0;
+  const long long row_off = (first * M + lane) * M;
+
+  float a[M];
+  if (valid) {
+    load_row<M, V>(a, S + row_off);
+  } else {
+#pragma unroll
+    for (int j = 0; j < M; ++j) a[j] = (j == i) ? 1.0f : 0.0f;
+  }
+  unsigned neg = 0u;  // bit j: I[i,j] is -0 (j not yet pivoted, j != i)
+
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int src = src0 + k;
+    const bool piv = (i == k);
+    const float f = a[k];
+    const float r = 1.0f / __shfl_sync(kFull, f, src);
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (j == k) continue;
+      const float t = __shfl_sync(kFull, a[j], src) * r;
+      a[j] = piv ? t : a[j] - f * t;
+    }
+    const unsigned nk = __shfl_sync(kFull, neg, src);
+    const unsigned sr = sign_mask(r);
+    // Row k: rowI[k] = 1 * r, and rowI[j] = I[k,j] * r is a zero of sign
+    // nk_j ^ sr.  Row i != k: I[i,k] - f * r, and I[i,j] - f * rowI[j] is
+    // -0 only for -0 minus +0.
+    const float zk = ((neg >> k) & 1u) ? -0.0f : 0.0f;
+    a[k] = piv ? r : zk - f * r;
+    neg = piv ? (nk ^ sr) : (neg & ~(nk ^ sr ^ sign_mask(f)));
+  }
+
+  if (valid) store_row<M, V>(out + row_off, a);
+}
+
+template <int M>
+cudaError_t launch_warp(const float* S, float* out, int batch,
+                        cudaStream_t stream) {
+  constexpr int G = 32 / M;
+  constexpr int V = natural_vec<M>();
+  const long long warps = (static_cast<long long>(batch) + G - 1) / G;
+  const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
+  const auto addr = reinterpret_cast<std::uintptr_t>(S) |
+                    reinterpret_cast<std::uintptr_t>(out);
+  if (V > 1 && addr % (4 * V) == 0) {
+    gj_warp_kernel<M, V><<<blocks, kWarps * 32, 0, stream>>>(S, out, batch);
+  } else {
+    gj_warp_kernel<M, 1><<<blocks, kWarps * 32, 0, stream>>>(S, out, batch);
+  }
+  return cudaGetLastError();
+}
+
+// ---- block design, 33 <= m <= 48 ------------------------------------------
 
 constexpr int kThreads = 256;
 
@@ -77,8 +234,8 @@ __device__ __forceinline__ void gj_step(float (&a)[M], float (&inv)[M],
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
-gj_inverse_kernel(const float* __restrict__ S, float* __restrict__ out,
-                  int batch) {
+gj_block_kernel(const float* __restrict__ S, float* __restrict__ out,
+                int batch) {
   constexpr int kMats = kThreads / M;  // matrices per block
   static_assert(kMats * M * M * 4 + kMats * 2 * M * 4 <= 48 * 1024,
                 "static shared memory over 48 KB");
@@ -107,15 +264,8 @@ gj_inverse_kernel(const float* __restrict__ S, float* __restrict__ out,
     inv[j] = e;
   }
 
-  // Small orders (the solver's 8 and 14) unroll the step loop fully; larger
-  // ones keep it rolled so that the 48 instantiations compile in seconds.
-  if constexpr (M <= 16) {
-#pragma unroll
-    for (int k = 0; k < M; ++k) gj_step<M>(a, inv, piv[local], i, k);
-  } else {
 #pragma unroll 1
-    for (int k = 0; k < M; ++k) gj_step<M>(a, inv, piv[local], i, k);
-  }
+  for (int k = 0; k < M; ++k) gj_step<M>(a, inv, piv[local], i, k);
 
   if (valid) {
 #pragma unroll
@@ -126,12 +276,22 @@ gj_inverse_kernel(const float* __restrict__ S, float* __restrict__ out,
 }
 
 template <int M>
-cudaError_t launch(const float* S, float* out, int batch,
-                   cudaStream_t stream) {
+cudaError_t launch_block(const float* S, float* out, int batch,
+                         cudaStream_t stream) {
   constexpr int kMats = kThreads / M;
   const int blocks = (batch + kMats - 1) / kMats;
-  gj_inverse_kernel<M><<<blocks, kMats * M, 0, stream>>>(S, out, batch);
+  gj_block_kernel<M><<<blocks, kMats * M, 0, stream>>>(S, out, batch);
   return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch(const float* S, float* out, int batch,
+                   cudaStream_t stream) {
+  if constexpr (M <= kWarpMaxM) {
+    return launch_warp<M>(S, out, batch, stream);
+  } else {
+    return launch_block<M>(S, out, batch, stream);
+  }
 }
 
 }  // namespace

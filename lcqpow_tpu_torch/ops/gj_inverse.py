@@ -11,7 +11,8 @@ that replaces the Pallas TPU kernel ``lcqpow_tpu/ops/pallas_inverse.py``
   subtract, and the kernel is built with ``--fmad=false`` to do the same, so
   the two agree bit for bit on the card.
 * ``launch_count`` counts the kernel's launches (never the plain version's),
-  so a run can show that its main path went through the kernel.
+  so a run can show that its main path went through the kernel;
+  ``launch_counts`` splits the same launches by matrix order m.
 
 No pivoting: the callers pass Jacobi-scaled, regularized SPD matrices and
 refine the result (Newton-Schulz, or the caller's own iterative refinement).
@@ -31,6 +32,8 @@ MAX_M = 48
 
 #: Launches of the CUDA kernel in this process.
 launch_count = 0
+#: The same launches by matrix order: m -> launches.
+launch_counts: dict[int, int] = {}
 
 
 @functools.cache
@@ -97,4 +100,5 @@ def gj_inverse(S: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gj_inverse: kernel launch failed, cudaError {err}")
     launch_count += 1
+    launch_counts[m] = launch_counts.get(m, 0) + 1
     return out
