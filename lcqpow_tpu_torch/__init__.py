@@ -1,12 +1,14 @@
 """lcqpow_tpu_torch — the PyTorch + CUDA port of ``lcqpow_tpu``.
 
 A batched solver for Quadratic Programs with linear Complementarity
-constraints (LCQPs): the penalty homotopy with the polish-first ADMM inner
-engine, and the f32-predictor / double-word-f32 corrector pipeline with
-certification and escalation.  The batch axis is written out (every tensor
-carries a leading lane axis); the batched SPD inverse at the heart of every
-polish and corrector KKT solve is a hand-written CUDA kernel
-(``csrc/gj_inverse.cu``), built with ``nvcc`` at first use.
+constraints (LCQPs): the penalty homotopy with the polish-first ADMM or the
+block-pivot active-set (PAS) inner engine, the f32-predictor /
+double-word-f32 corrector pipeline with certification and escalation,
+chunked fleets and an f64 host audit of certified solutions.  The batch
+axis is written out (every tensor carries a leading lane axis); the batched
+SPD inverse of small orders at the heart of every polish and corrector KKT
+solve is a hand-written CUDA kernel (``csrc/gj_inverse.cu``), built with
+``nvcc`` at first use.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the JAX package ``lcqpow_tpu`` is the reference the tests
@@ -32,6 +34,9 @@ from .data import LCQPData, LCQPError, make_lcqp, pad_lcqp, stack_lcqps
 from .stats import Stats, Trajectories
 from .solver import Solution, solve
 from .mixed import solve_mixed, solve_batch_mixed
+from .batch import solve_batch
+from .audit import audit_solution
+from . import batch
 from . import convert
 from . import ops
 from . import problems
@@ -45,5 +50,6 @@ __all__ = [
     "LCQPData", "LCQPError", "make_lcqp", "pad_lcqp", "stack_lcqps",
     "Stats", "Trajectories",
     "Solution", "solve", "solve_mixed", "solve_batch_mixed",
-    "convert", "ops", "problems",
+    "solve_batch", "audit_solution",
+    "batch", "convert", "ops", "problems",
 ]

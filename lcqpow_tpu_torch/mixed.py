@@ -17,10 +17,12 @@ port of ``lcqpow_tpu/mixed.py``.
 
 Every stage is batched with a leading lane axis and per-lane loop masks
 (see :mod:`.solvers.admm`).  The JAX module holds the measurements behind
-each constant and branch; they are kept here unchanged.
+each constant and branch; they are kept here unchanged.  The corrector's
+KKT pass has the same three forms as the polish (uncompressed Schur,
+compressed Schur, range space), and :func:`solve_batch_mixed` chunks
+medium-shape fleets.
 
-Not ported yet: the range-space KKT form, Schur compression (m > n + 64),
-chunked fleets (``batch.chunked_call``) and the multi-host escalation path.
+Not ported yet: the multi-host escalation path.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .ops.df32 import DF
 from .ops.linalg import absmax as _amax, eye, lane_where, mtv, mv
 from .options import Options
 from .solver import Solution, _classify, solve
-from .solvers.admm import _ruiz_equilibrate
+from .solvers.admm import _ruiz_equilibrate, compress_rows, compression_cap
 from .stats import Stats
 from .types import AlgorithmStatus, PrintLevel, ReturnValue
 
@@ -122,11 +124,6 @@ def correct_and_certify(data: LCQPData, options: Options,
     beta = options.penalty_update_factor
     stat_tol = options.stationarity_tolerance
     compl_tol = options.complementarity_tolerance
-    if options.admm.kkt_form == "range" and m > n:
-        raise NotImplementedError("kkt_form='range' is not ported yet")
-    if min(m, -(-(n + 64) // 32) * 32) < m:
-        raise NotImplementedError(
-            "Schur compression (m > n + 64 rows) is not ported yet")
 
     # ---- exact df32 splits of the problem data (one-time) ------------------
     A_int64 = torch.cat([data.A_full, eye(n, data.Q).expand(B, n, n)], dim=-2)
@@ -148,11 +145,20 @@ def correct_and_certify(data: LCQPData, options: Options,
     has_u = u32 < inf32
     zero = torch.zeros((), dtype=_F32, device=dev)
 
-    # f32 preconditioner pieces (one-time), in Ruiz-scaled space.
+    # f32 preconditioner pieces (one-time), in Ruiz-scaled space.  Medium
+    # shapes in the range form build an n x n operator per pass instead of
+    # masking the cached m x m Schur product (see admm._polish_solve).
     Dsc, Esc, csc, Qs, As_sc = _ruiz_equilibrate(Qhi, Ahi, g_df.hi)
     csc = csc[:, None]
-    Pinv = spd_inverse(Qs + _DELTA_P * eye(n, Qs))
-    Hfull = As_sc @ (Pinv @ As_sc.mT)
+    eps32 = torch.finfo(_F32).eps
+    use_range = options.admm.kkt_form == "range" and m > n
+    k_cap = compression_cap(n, m)
+    if use_range:
+        d_pen = torch.sqrt(torch.tensor(_DELTA_P, dtype=_F32, device=dev)
+                           / torch.tensor(eps32, dtype=_F32, device=dev))
+    else:
+        Pinv = spd_inverse(Qs + _DELTA_P * eye(n, Qs))
+        Hfull = As_sc @ (Pinv @ As_sc.mT)
 
     def Qx_df(x: DF) -> DF:
         return df32.split_matvec(Qhi, Qlo, x)
@@ -219,24 +225,57 @@ def correct_and_certify(data: LCQPData, options: Options,
         mf = act.to(_F32)
 
         G32 = As_sc * mf[:, :, None]
-        eps32 = torch.finfo(_F32).eps
-        H = Hfull * (mf[:, :, None] * mf[:, None, :])
-        reg = torch.clamp_min(8.0 * eps32 * torch.diagonal(H, dim1=-2, dim2=-1),
-                              _DELTA)
-        rvec = torch.where(act, reg, 1.0)
-        Sinv = spd_inverse_light(H + torch.diag_embed(rvec))
+        if use_range:
+            # Range-space preconditioner K = Qs + As'(d*mask)As, SPD for any
+            # active set.
+            dmf = d_pen * mf
+            K = Qs + (As_sc * dmf[:, :, None]).mT @ As_sc
+            regK = torch.maximum(
+                torch.tensor(_DELTA_P, dtype=_F32, device=dev),
+                8.0 * eps32 * torch.diagonal(K, dim1=-2, dim2=-1))
+            Kinv = spd_inverse_light(K + torch.diag_embed(regK))
 
-        def precond(r1, r2):
-            """Unscaled residuals in, unscaled corrections out; the solve
-            runs in Ruiz-scaled space, with the null-space dual cleanup
-            ``dnus -= Sinv (r * dnus)``."""
-            r1s = csc * Dsc * r1
-            r2s = torch.where(act, Esc * r2, csc * r2 / Esc)
-            t = mv(G32, mv(Pinv, r1s)) - r2s
-            dnus = mv(Sinv, t)
-            dnus = dnus - mv(Sinv, rvec * dnus)
-            dxs = mv(Pinv, mtv(G32, dnus) - r1s)
-            return Dsc * dxs, Esc * dnus / csc
+            def precond(r1, r2):
+                """Unscaled residuals in, unscaled corrections out; with
+                r1 = Qx - G'nu + g the augmented-Lagrangian correction is
+                dx = -Kinv(r1 + G'D r2), dnu = -D(G dx + r2); inactive rows
+                carry r2 = nu and come out as dnu = -nu."""
+                r1s = csc * Dsc * r1
+                r2s_act = Esc * r2 * mf
+                dxs = -mv(Kinv, r1s + mtv(As_sc, dmf * r2s_act))
+                dnus_act = -(dmf * (mv(G32, dxs) + r2s_act))
+                dnus = torch.where(act, dnus_act, -(csc * r2 / Esc))
+                return Dsc * dxs, Esc * dnus / csc
+        else:
+            # f32 Schur preconditioner, compressed to the k_cap rows of
+            # highest priority when k_cap < m; rows left out are inactive
+            # and keep dnu = -nu.
+            if k_cap < m:
+                sel, actk, Hk, Gk = compress_rows(k_cap, act, eq, Hfull, G32)
+            else:
+                sel, actk, Hk, Gk = None, act, Hfull, G32
+            mfk = actk.to(_F32)
+            H = Hk * (mfk[:, :, None] * mfk[:, None, :])
+            reg = torch.clamp_min(
+                8.0 * eps32 * torch.diagonal(H, dim1=-2, dim2=-1), _DELTA)
+            rvec = torch.where(actk, reg, 1.0)
+            Sinv = spd_inverse_light(H + torch.diag_embed(rvec))
+
+            def precond(r1, r2):
+                """Unscaled residuals in, unscaled corrections out; the
+                solve runs in Ruiz-scaled space, with the null-space dual
+                cleanup ``dnus -= Sinv (r * dnus)``."""
+                r1s = csc * Dsc * r1
+                r2s = torch.where(act, Esc * r2, csc * r2 / Esc)
+                r2sk = r2s if sel is None \
+                    else torch.take_along_dim(r2s, sel, dim=1)
+                t = mv(Gk, mv(Pinv, r1s)) - r2sk
+                dnus = mv(Sinv, t)
+                dnus = dnus - mv(Sinv, rvec * dnus)
+                dxs = mv(Pinv, mtv(Gk, dnus) - r1s)
+                if sel is not None:
+                    dnus = torch.where(act, zero, -r2s).scatter(1, sel, dnus)
+                return Dsc * dxs, Esc * dnus / csc
 
         b_df = DF(torch.where(low, l_df.hi, torch.where(up, u_df.hi, zero))
                   * mf,
@@ -512,26 +551,60 @@ def _round_seed(seed: int, r: int) -> int:
     return (seed + 0x9E3779B97F4A7C15 * (r + 1)) % (2 ** 63)
 
 
+#: Auto-chunk budget of the JAX package: lanes * m^3 per chunk, just above
+#: 32 * 505^3, so the circle shape (m = 503) chunks to 32 and the warm-up
+#: shape (m = 14) is never chunked.
+_AUTO_CHUNK_BUDGET = 4.2e9
+
+
+def auto_chunk(batch: int, m: int) -> Optional[int]:
+    """Chunk width :func:`solve_batch_mixed` picks when given none: at most
+    32, and ``None`` (full width) when ``4.2e9 / m^3`` covers the batch.
+    The JAX package sized it for its compiler; it is kept because a
+    lockstep chunk runs as long as its slowest lane, on the card too."""
+    cap = int(_AUTO_CHUNK_BUDGET / max(m, 1) ** 3)
+    return max(1, min(32, cap)) if cap < batch else None
+
+
 def solve_batch_mixed(data: LCQPData, options: Options = Options(),
                       x0: Optional[torch.Tensor] = None,
                       y0: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       n_corrector_iters: int = 25,
-                      escalate: int = 1) -> Solution:
+                      escalate: int = 1,
+                      chunk: Optional[int] = None) -> Solution:
     """Batched mixed-precision solve (leading lane axis on every field of
     ``data`` and on ``x0``/``y0``), with up to ``escalate`` host-side retry
     rounds of the uncertified lanes (:func:`_escalate_failed`).  Runs on
-    the device of ``data``."""
+    the device of ``data``.
+
+    ``chunk``: solve the fleet ``chunk`` lanes at a time
+    (:func:`batch.chunked_call`); ``None`` picks :func:`auto_chunk`'s
+    width, ``0`` forces full width.  The chunks share one perturbation
+    generator, so with ``perturb_step`` on a chunked solve draws
+    differently from a full-width one."""
+    from .batch import chunked_call
+
     options = options.replace(print_level=PrintLevel.NONE)
     options = _resolve_kkt_form(data, options)
+    batch = data.Q.shape[0]
     if generator is None:
         generator = torch.Generator(device=data.Q.device).manual_seed(
             options.seed)
-    sol = solve_mixed(data, options, x0=x0, y0=y0, generator=generator,
-                      n_corrector_iters=n_corrector_iters)
+    if chunk is None:
+        chunk = auto_chunk(batch, data.nC + 2 * data.nComp + data.nV)
+
+    def fn(d, x, y):
+        return solve_mixed(d, options, x0=x, y0=y, generator=generator,
+                           n_corrector_iters=n_corrector_iters)
+
+    if chunk is not None and 0 < chunk <= batch:
+        sol = chunked_call(fn, (data, x0, y0), batch, chunk)
+    else:
+        sol = fn(data, x0, y0)
     if escalate > 0:
         sol = _escalate_failed(sol, data, options, x0, y0,
-                               n_corrector_iters, escalate)
+                               n_corrector_iters, escalate, chunk=chunk)
     return sol
 
 
@@ -551,11 +624,16 @@ def _merge_retry(sol: Solution, retry: Solution, round_idx: int) -> Solution:
 
 def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
                      x0, y0, n_corrector_iters: int,
-                     rounds: int) -> Solution:
+                     rounds: int, chunk: Optional[int] = None) -> Solution:
     """Re-solve the uncertified lanes with escalating strategies and merge
     the certified retries back: round 0 a doubled corrector budget and a
     fresh perturbation seed; round 1 a restart of the homotopy from the
-    failed iterate; round >= 2 the original start with adaptive rho."""
+    failed iterate; round >= 2 the original start with adaptive rho.
+
+    A chunked fleet retries at chunk width ``min(chunk, 8)``, as the JAX
+    package does.  The JAX package also pads each retry to a power-of-two
+    bucket of repeated lanes so that few shapes compile; nothing compiles
+    here, so the retry holds the failed lanes only."""
     dev = data.Q.device
     bad = torch.nonzero(sol.ret != _SUCCESS).flatten()
     for r in range(rounds):
@@ -576,7 +654,9 @@ def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
         gen = torch.Generator(device=dev).manual_seed(
             _round_seed(options.seed, r))
         retry = solve_batch_mixed(sub, ropts, x0=sx0, y0=sy0, generator=gen,
-                                  n_corrector_iters=rbudget, escalate=0)
+                                  n_corrector_iters=rbudget, escalate=0,
+                                  chunk=None if chunk is None
+                                  else min(chunk, 8))
         full = sol.map(lambda a, b: a.index_copy(0, bad, b.to(a.dtype)),
                        retry)
         sol = _merge_retry(sol, full, r)

@@ -7,8 +7,12 @@ kernel on the card) -> unscale -> guarded Newton-Schulz (none for the
 "light" inverse).  Everything else goes to :func:`_spd_inverse_impl`:
 Jacobi scale -> matmul-only block recursion -> Newton-Schulz.  An
 unbatched (2-D) matrix takes :func:`_spd_inverse_impl`, as an un-vmapped
-call does in the JAX package.  The blocked sweep inverse the JAX package
-uses above n = 64 is not ported yet.
+call does in the JAX package.  Above n = 64 :func:`_spd_inverse_impl`
+takes the blocked sweep (:func:`sweep_spd_inverse`) in place of the
+recursion, as the JAX package does; the sweep inverts its 32 x 32 pivot
+blocks with :func:`block_spd_inverse`, never with the Gauss-Jordan kernel,
+so its arithmetic is the reference's.  Everything here but the Gauss-Jordan
+kernel is plain PyTorch, as it is plain ``jnp`` there.
 """
 
 from __future__ import annotations
@@ -70,8 +74,82 @@ def block_spd_inverse(M: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
-#: Above this order the JAX package switches to its blocked sweep inverse,
-#: which the port does not have yet.
+def _sweep_eager(M: torch.Tensor, block: int) -> torch.Tensor:
+    n = M.shape[-1]
+    block = min(block, n)
+    nb = -(-n // block)
+    npad = nb * block
+    A = M.new_zeros(M.shape[:-2] + (npad, npad))
+    A[..., :n, :n] = M
+    # Identity in the padding: inv(blockdiag(M, I)) = blockdiag(Minv, I).
+    A.diagonal(dim1=-2, dim2=-1)[..., n:].fill_(1.0)
+    for k in range(nb):
+        blk = slice(k * block, (k + 1) * block)
+        col = A[..., :, blk]
+        row = A[..., blk, :]
+        Di = block_spd_inverse(A[..., blk, blk])
+        G = col @ Di
+        Di_row = Di @ row
+        # Full rank-b update, then the pivot row, column and block per the
+        # sweep formulas: A[i,k] <- A[i,k] Di, A[k,j] <- Di A[k,j],
+        # A[k,k] <- -Di, A[i,j] <- A[i,j] - A[i,k] Di A[k,j].
+        A = A - G @ row
+        A[..., :, blk] = G
+        A[..., blk, :] = Di_row
+        A[..., blk, blk] = -Di
+    return -A[..., :n, :n]
+
+
+#: CUDA graphs of the sweep, one per (shape, dtype, device, block); the
+#: oldest is dropped past ``_SWEEP_GRAPHS_MAX`` (a chunked circle fleet
+#: uses a dozen: two orders at its chunk width and at each retry width).
+_SWEEP_GRAPHS: dict = {}
+_SWEEP_GRAPHS_MAX = 32
+
+
+def _sweep_graphed(M: torch.Tensor, block: int) -> torch.Tensor:
+    """:func:`_sweep_eager` replayed from a CUDA graph captured at the first
+    call of each shape: the same kernels in the same order, so the same
+    bits, for one launch in place of the ~3000 small ones of a 288-row
+    sweep (their host time is what bounds the eager sweep)."""
+    key = (tuple(M.shape), M.dtype, M.device, block)
+    entry = _SWEEP_GRAPHS.get(key)
+    if entry is None:
+        x = M.clone()
+        side = torch.cuda.Stream(M.device)
+        side.wait_stream(torch.cuda.current_stream(M.device))
+        with torch.cuda.stream(side):
+            _sweep_eager(x, block)      # warm-up outside the capture
+        torch.cuda.current_stream(M.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = _sweep_eager(x, block)
+        if len(_SWEEP_GRAPHS) >= _SWEEP_GRAPHS_MAX:
+            _SWEEP_GRAPHS.pop(next(iter(_SWEEP_GRAPHS)))
+        entry = _SWEEP_GRAPHS[key] = (graph, x, y)
+    graph, x, y = entry
+    x.copy_(M)
+    graph.replay()
+    return y.clone()
+
+
+def sweep_spd_inverse(M: torch.Tensor, block: int = 32) -> torch.Tensor:
+    """SPD inverse via the blocked sweep operator (in-place block
+    Gauss-Jordan), batched over leading dims: the medium-``n`` companion of
+    :func:`block_spd_inverse`.  The matrix is padded with identity to a
+    multiple of ``block``; each step inverts its pivot block with
+    :func:`block_spd_inverse` and applies one rank-``block`` update.  No
+    pivoting: every pivot block is an SPD Schur complement of the input.
+    After all blocks the matrix holds ``-M^-1``.
+
+    On a CUDA tensor the sweep is replayed from a CUDA graph
+    (:func:`_sweep_graphed`), unless a graph is being captured already."""
+    if M.is_cuda and not torch.cuda.is_current_stream_capturing():
+        return _sweep_graphed(M.contiguous(), block)
+    return _sweep_eager(M, block)
+
+
+#: Recursion-vs-sweep crossover of the JAX package.
 _SWEEP_THRESHOLD = 64
 
 
@@ -111,11 +189,11 @@ def _ns_steps(dtype) -> int:
 
 
 def _spd_inverse_impl(M: torch.Tensor, ns) -> torch.Tensor:
-    if M.shape[-1] > _SWEEP_THRESHOLD:
-        raise NotImplementedError(
-            "SPD inverse above n = 64 needs the sweep inverse, not ported yet")
     Ms, d = _jacobi_scale(M)
-    Xs = block_spd_inverse(Ms)
+    if M.shape[-1] > _SWEEP_THRESHOLD:
+        Xs = sweep_spd_inverse(Ms)
+    else:
+        Xs = block_spd_inverse(Ms)
     X = Xs / (d[..., :, None] * d[..., None, :])
     steps = _ns_steps(M.dtype) if ns is None else ns
     return _newton_schulz(M, X, steps) if steps else X
@@ -155,3 +233,16 @@ def spd_inverse_light(M: torch.Tensor) -> torch.Tensor:
     """Light SPD inverse (no Newton-Schulz): for active-set Schur inverses
     consumed as preconditioners inside an iterative-refinement loop."""
     return _routed(M, 0)
+
+
+def spd_inverse_chol(M: torch.Tensor) -> torch.Tensor:
+    """Cholesky-route inverse ``W'W`` with ``W = chol(M)^-1``: a cross-check
+    of :func:`block_spd_inverse` and :func:`sweep_spd_inverse`."""
+    W = tri_inv_lower(torch.linalg.cholesky(M))
+    return W.mT @ W
+
+
+def spd_inverse_factor(M: torch.Tensor) -> torch.Tensor:
+    """``W = chol(M)^-1``, so that ``M^-1 = W'W`` (solves applied as two
+    matmuls)."""
+    return tri_inv_lower(torch.linalg.cholesky(M))

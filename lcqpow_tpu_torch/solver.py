@@ -16,9 +16,13 @@ Step perturbation draws ``{-1, 0, 1} * eps`` per coordinate from an explicit
 bits, so iterate-level comparisons with the JAX package use
 ``perturb_step=False``.
 
-Not ported yet: iteration printing (``print_level`` is accepted and ignored:
-every solve is silent) and the PAS inner engine (``inner_solver="pas"``
-raises ``NotImplementedError``).
+The inner QP engine is chosen by ``Options.inner_solver`` through
+``_INNER_ENGINES``: the polish-first ADMM (:mod:`.solvers.admm`) or the
+block-pivot active-set engine (:mod:`.solvers.pas`); both share one
+workspace and one signature.
+
+Not ported yet: iteration printing (``print_level`` is accepted and
+ignored: every solve is silent).
 """
 
 from __future__ import annotations
@@ -31,9 +35,12 @@ import torch
 from .data import LCQPData
 from .ops.linalg import absmax, eye, lane_where, mtv, mv
 from .options import Options
-from .solvers import admm
+from .solvers import admm, pas
 from .stats import Stats, Trajectories
 from .types import AlgorithmStatus, ReturnValue
+
+# Inner-engine dispatch; both engines share QPWorkspace/ADMMState.
+_INNER_ENGINES = {"admm": admm.solve, "pas": pas.solve}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +143,6 @@ def solve(data: LCQPData, options: Options = Options(),
     if squeeze:
         x0 = None if x0 is None else x0.unsqueeze(0)
         y0 = None if y0 is None else y0.unsqueeze(0)
-    if options.inner_solver != "admm":
-        raise NotImplementedError("inner_solver='pas' is not ported yet")
     B, n = data.g.shape
     nC, nK = data.nC, data.nComp
     m0 = nC + 2 * nK
@@ -186,7 +191,8 @@ def solve(data: LCQPData, options: Options = Options(),
                 | (status == admm.ADMM_DUAL_INFEASIBLE) | (status == 0)
         return status <= 0
 
-    res0 = admm.solve(ws, gk0, st0, cfg)
+    inner_solve = _INNER_ENGINES[options.inner_solver]
+    res0 = inner_solve(ws, gk0, st0, cfg)
     yk_full0 = -res0.y
     init_failed = qp_failed(res0.status)
 
@@ -346,7 +352,7 @@ def solve(data: LCQPData, options: Options = Options(),
         go = run & ~done
         gk2 = rho[:, None] * mv(data.C, xk) + g_tilde
         st = admm.ADMMState(c["st_x"], c["st_z"], c["st_y"])
-        res = admm.solve(ws, gk2, st, cfg, active=go)
+        res = inner_solve(ws, gk2, st, cfg, active=go)
         pt_ok = torch.isfinite(res.x).all(-1) & torch.isfinite(res.y).all(-1)
         xnew = lane_where(pt_ok, res.x, xk)
         yk_new = lane_where(pt_ok, -res.y, yk)

@@ -16,8 +16,10 @@ Internal constraint row order is ``[A (nC); L; R; box (nV)]``.  Exit flags
 follow OSQP's ``status_val``: 1 solved, -2 max-iter, -3 primal infeasible,
 -4 dual infeasible.
 
-Not ported yet: the range-space KKT form (``kkt_form="range"``) and Schur
-compression (m > n + 64 rows); both raise ``NotImplementedError``.
+The active-set KKT solve (:func:`_polish_solve`) has the JAX package's
+three forms: the uncompressed Schur form, the Schur form compressed to
+``n + 64`` rows (rounded up to 32) when m is larger, and the range-space
+form (``kkt_form="range"``).
 """
 
 from __future__ import annotations
@@ -215,18 +217,60 @@ def _infeasibility(ws: QPWorkspace, qs, dxs, dys, cfg: ADMMOptions):
     return prim_inf, dual_inf
 
 
+def stable_top_k(prio: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of each row of ``prio``, ties
+    taken by lower index: the order of ``lax.top_k``, which the JAX package
+    ranks its compression priorities with (``torch.topk`` breaks the ties
+    differently, and nearly every priority is tied)."""
+    return torch.sort(prio, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def gather_rows(M: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``M[b, sel[b], ...]`` per lane: rows of a (B, m, ...) tensor."""
+    idx = sel.reshape(sel.shape + (1,) * (M.ndim - 2))
+    return torch.take_along_dim(M, idx, dim=1)
+
+
+def compress_rows(k_cap: int, act, eq_mask, Hfull, G):
+    """Active-set compression: the ``k_cap`` rows of highest priority per
+    lane (active, then equality; ties by lower index, as ``lax.top_k``
+    takes them; on overflow active rows beyond the cap are dropped, as in
+    the JAX package).  Returns ``(sel, act, Hfull, G)`` restricted to
+    them."""
+    sel = stable_top_k(act.to(G.dtype) + eq_mask.to(G.dtype), k_cap)
+    Hk = torch.take_along_dim(gather_rows(Hfull, sel), sel[:, None, :],
+                              dim=2)
+    return (sel, torch.take_along_dim(act, sel, dim=1), Hk,
+            gather_rows(G, sel))
+
+
+def compression_cap(n: int, m: int) -> int:
+    """Rows kept by the active-set compression: ``n + 64`` rounded up to a
+    multiple of 32, at most ``m``.  Compression is on when it is below m."""
+    return min(m, -(-(n + 64) // 32) * 32)
+
+
 def _polish_solve(ws: QPWorkspace, q, low, up, cfg: ADMMOptions):
-    """Equality-KKT solve on the masked active set: delta-regularized dual
-    Schur complement (a masked copy of the cached ``Hfull``) + iterative
-    refinement, in the Ruiz-scaled space; the result is unscaled
-    (``x = D xs``, ``nu = E nus / c``)."""
+    """Equality-KKT solve on the masked active set in the Ruiz-scaled space;
+    the result is unscaled (``x = D xs``, ``nu = E nus / c``).
+
+    Three forms, chosen as in the JAX package:
+
+    * range (``kkt_form == "range"`` and m > n): the n x n
+      augmented-Lagrangian operator ``K = Ps + As'(d*mask)As`` with the
+      balanced penalty ``d = sqrt(sig/eps_w)``, ``polish_refine_iter + 3``
+      refinement steps from zero;
+    * Schur, compressed when ``compression_cap(n, m) < m``: the rows of
+      highest priority (active, then equality; ties by lower index) are
+      gathered, the k x k masked Schur complement of the cached ``Hfull``
+      is solved, and the duals are scattered back to the full layout;
+    * Schur, uncompressed otherwise.
+
+    Every Schur form regularizes relative to its diagonal at the working
+    precision and refines ``polish_refine_iter`` times."""
     n = ws.Ps.shape[-1]
     m = ws.As.shape[-2]
-    if cfg.kkt_form == "range" and m > n:
-        raise NotImplementedError("kkt_form='range' is not ported yet")
-    if min(m, -(-(n + 64) // 32) * 32) < m:
-        raise NotImplementedError(
-            "Schur compression (m > n + 64 rows) is not ported yet")
     dtype = ws.P.dtype
     act = low | up
     mf = act.to(dtype)
@@ -235,24 +279,55 @@ def _polish_solve(ws: QPWorkspace, q, low, up, cfg: ADMMOptions):
     zero = mf.new_zeros(())
     b = torch.where(low, ws.ls, torch.where(up, ws.us, zero))
     b = b.clamp(-INFTY, INFTY) * mf
-
     G = ws.As * mf[:, :, None]
-    H = ws.Hfull * (mf[:, :, None] * mf[:, None, :])
-    eps_w = torch.finfo(dtype).eps
-    reg = torch.clamp_min(8.0 * eps_w * torch.diagonal(H, dim1=-2, dim2=-1),
+    eps_w = torch.tensor(torch.finfo(dtype).eps, dtype=dtype,
+                         device=mf.device)
+
+    if cfg.kkt_form == "range" and m > n:
+        dP = cfg.polish_precond_delta
+        if dP is None:
+            dP = cfg.polish_delta
+        sig = torch.tensor(dP, dtype=dtype, device=mf.device)
+        dmf = torch.sqrt(sig / eps_w) * mf
+        K = ws.Ps + (ws.As * dmf[:, :, None]).mT @ ws.As
+        reg = torch.maximum(sig, 8.0 * eps_w
+                            * torch.diagonal(K, dim1=-2, dim2=-1))
+        Kinv = spd_inverse_light(K + torch.diag_embed(reg))
+        x_pol = torch.zeros_like(qs)
+        nu = torch.zeros_like(mf)
+        for _ in range(cfg.polish_refine_iter + 3):
+            r1 = mv(ws.Ps, x_pol) + qs + mtv(G, nu)
+            r2 = mv(G, x_pol) - b
+            dx = -mv(Kinv, r1 + mtv(ws.As, dmf * r2))
+            dnu = dmf * (mv(G, dx) + r2)
+            x_pol, nu = x_pol + dx, nu + dnu
+        return ws.D * x_pol, torch.where(act, ws.E * nu / c, zero)
+
+    k_cap = compression_cap(n, m)
+    if k_cap < m:
+        sel, actk, Hk, Gk = compress_rows(k_cap, act, ws.eq_mask, ws.Hfull, G)
+        bk = torch.take_along_dim(b, sel, dim=1)
+    else:
+        sel, actk, Hk, Gk, bk = None, act, ws.Hfull, G, b
+    mfk = actk.to(dtype)
+    H = Hk * (mfk[:, :, None] * mfk[:, None, :])
+    reg = torch.clamp_min(8.0 * torch.finfo(dtype).eps
+                          * torch.diagonal(H, dim1=-2, dim2=-1),
                           cfg.polish_delta)
-    S = H + torch.diag_embed(torch.where(act, reg, 1.0))
+    S = H + torch.diag_embed(torch.where(actk, reg, 1.0))
     Sinv = spd_inverse_light(S)
 
-    nu = mv(Sinv, -(b + mv(G, mv(ws.Pinv_d, qs))))
-    x_pol = -mv(ws.Pinv_d, qs + mtv(G, nu))
+    nu = mv(Sinv, -(bk + mv(Gk, mv(ws.Pinv_d, qs))))
+    x_pol = -mv(ws.Pinv_d, qs + mtv(Gk, nu))
 
     for _ in range(cfg.polish_refine_iter):
-        r1 = mv(ws.Ps, x_pol) + qs + mtv(G, nu)
-        r2 = mv(G, x_pol) - b
-        dnu = mv(Sinv, r2 - mv(G, mv(ws.Pinv_d, r1)))
-        dx = -mv(ws.Pinv_d, r1 + mtv(G, dnu))
+        r1 = mv(ws.Ps, x_pol) + qs + mtv(Gk, nu)
+        r2 = mv(Gk, x_pol) - bk
+        dnu = mv(Sinv, r2 - mv(Gk, mv(ws.Pinv_d, r1)))
+        dx = -mv(ws.Pinv_d, r1 + mtv(Gk, dnu))
         x_pol, nu = x_pol + dx, nu + dnu
+    if sel is not None:
+        nu = torch.zeros_like(mf).scatter(1, sel, nu)
     return ws.D * x_pol, torch.where(act, ws.E * nu / c, zero)
 
 

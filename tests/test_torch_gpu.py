@@ -111,3 +111,26 @@ def test_gj_kernel_counts_launches_by_order():
         pgj.gj_inverse(_scaled_spd(5, m, seed=m).cuda())
     assert pgj.launch_counts[8] == before.get(8, 0) + 1
     assert pgj.launch_counts[14] == before.get(14, 0) + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,dtype", [(32, 288, torch.float32),
+                                       (3, 202, torch.float32),
+                                       (2, 100, torch.float64),
+                                       (1, 65, torch.float32)])
+def test_sweep_graph_equals_eager(B, n, dtype):
+    # The sweep inverse replays a CUDA graph on the card; it must give the
+    # bits of the same sweep run eagerly, on a fresh shape and on a replay.
+    _card()
+    from lcqpow_tpu_torch.ops import chol
+
+    for seed in (0, 1):
+        rng = np.random.default_rng(seed)
+        A = rng.normal(size=(B, n, n))
+        M = torch.from_numpy(A @ A.transpose(0, 2, 1) / n + np.eye(n)).to(
+            dtype).cuda()
+        got = chol.sweep_spd_inverse(M)
+        want = chol._sweep_eager(M, 32)
+        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert (tuple(M.shape), dtype, M.device, 32) in chol._SWEEP_GRAPHS

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of lcqpow_tpu_torch's main path goes, on one CUDA card.
+"""Where the time of lcqpow_tpu_torch's paths goes, on one CUDA card.
 
-Solves the 4096-lane warm-up fleet (``problems.warmup_fleet``) with
-``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
-escalate=1)`` three times without the profiler (host wall clock ending in
-``torch.cuda.synchronize()``), then once under ``torch.profiler``, and
-prints: the unprofiled walls, the device time summed over all kernels, the
-device busy share (device time / median unprofiled wall), the number of
-kernel launches, and the kernels with the most device time.  Run from the
-repo root::
+``main`` (the default) solves the 4096-lane warm-up fleet
+(``problems.warmup_fleet``) with ``solve_batch_mixed(...,
+max_iterations=200, n_corrector_iters=6, escalate=1)``; ``circle`` solves
+one 32-lane chunk of the circle fleet (``problems.circle_fleet(32)``,
+stationarity tolerance 1e-2, ``chunk=32``, ``escalate=0``).  Each is run
+three times without the profiler (host wall clock ending in
+``torch.cuda.synchronize()``), then once under ``torch.profiler``, and the
+script prints: the unprofiled walls, the device time summed over all
+kernels, the device busy share (device time / median unprofiled wall), the
+number of kernel launches, and the kernels with the most device time.
+Run from the repo root::
 
-    python3 tools/profile_torch_main.py
+    python3 tools/profile_torch_main.py [main|circle]
 """
 
 import statistics
@@ -25,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import lcqpow_tpu_torch as lt  # noqa: E402
-from lcqpow_tpu_torch.problems import warmup_fleet  # noqa: E402
+from lcqpow_tpu_torch.problems import circle_fleet, warmup_fleet  # noqa: E402
 
 
 def _device_us(evt):
@@ -43,11 +46,21 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    path = sys.argv[1] if len(sys.argv) > 1 else "main"
     opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=200)
-    data = warmup_fleet(4096)
-    run = lambda: lt.solve_batch_mixed(data, opts, n_corrector_iters=6,
-                                       escalate=1)
-    lt.solve_batch_mixed(warmup_fleet(64), opts, n_corrector_iters=6)
+    if path == "main":
+        data = warmup_fleet(4096)
+        run = lambda: lt.solve_batch_mixed(data, opts, n_corrector_iters=6,
+                                           escalate=1)
+        lt.solve_batch_mixed(warmup_fleet(64), opts, n_corrector_iters=6)
+    elif path == "circle":
+        opts = opts.replace(stationarity_tolerance=1e-2,
+                            qp_solver=lt.QPSolver.OSQP_SPARSE)
+        data, x0 = circle_fleet(32)
+        run = lambda: lt.solve_batch_mixed(data, opts, x0=x0, chunk=32,
+                                           escalate=0)
+    else:
+        raise SystemExit(f"unknown path {path!r}: main or circle")
     torch.cuda.synchronize()
     walls = []
     for _ in range(3):
@@ -56,7 +69,7 @@ def main():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"walls_s={[round(w, 4) for w in walls]} "
-          f"certified={int((sol.ret == 0).sum())}/4096")
+          f"certified={int((sol.ret == 0).sum())}/{sol.ret.shape[0]}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
