@@ -14,8 +14,9 @@ Phases, each printing one line with its seconds:
 3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
    Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
    (512, 48), (4096, 32), the pas-mixed-1024 path's (1024, 8) and
-   (1024, 14) and, for the launch-plus-latency floor of one matrix, (1, 8)
-   and (1, 14): bitwise equality (required), and device
+   (1024, 14) and, for the launch-plus-latency floor of one matrix and
+   the one-call mixed path of phase 9, (1, 2), (1, 4), (1, 8) and (1, 14):
+   bitwise equality (required), and device
    times per call (``torch.profiler``) beside the bound: of the kernel with
    the L2 cache flushed before each call, so that its inputs come from
    device memory as the bound assumes, and with them warm in L2; of the
@@ -40,6 +41,23 @@ Phases, each printing one line with its seconds:
    through ``solve_batch_mixed(chunk=32, escalate=3)`` from the lifted
    start, stationarity tolerance 1e-2.
 
+9. api: the reference-compatible surface on the card, one line per step
+   with its wall seconds and the kernel's launches by order (counts set to
+   0 before each step): OptimizeOnCircle N = 100 through ``LCQProblem``
+   from scipy.sparse CSC matrices (``OSQP_SPARSE``, stationarity
+   tolerance 1e-2, lifted start, f64) held to the reference's oracle
+   (``circle_oracle``); ``lcqpow(..., mixed=True)`` on the warm-up and the
+   first 8 ``random_lcqp(nV=8, nC=2, nComp=2)`` of ``default_rng(0)``,
+   each certified and equal to the port's CPU run to 1e-9 in x (with
+   ``perturbStep`` off: the card's and the CPU's generators draw
+   differently), with more than zero launches at B = 1; the warm-up
+   through the reference text format and ``load_lcqp_from_files``; the
+   INNER table ``run_solver`` prints (``check_printed_table``);
+   ``solve_batch_sharded`` over ``make_mesh()`` bit for bit
+   ``solve_batch`` on ``warmup_fleet(1024)``, and ``fleet_summary`` of the
+   main path's solution; the seven example scripts of ``EXAMPLE_SCRIPTS``
+   from ``examples_torch/``.
+
 Each of phases 6-8 prints its wall seconds, certified lanes, stages, mean
 iterations, the kernel's launches by matrix order, the resolved KKT form
 and the f64 audit (``lcqpow_tpu_torch.audit_solution``), and raises when
@@ -55,10 +73,15 @@ exits non-zero without printing that line; so it does when no CUDA device
 is available or the package is not beside it.
 """
 
+import contextlib
+import io
 import json
+import os
 import re
+import runpy
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,7 +97,10 @@ B_MAIN = 4096
 # pas-mixed-1024's 1024, at m = 8 and 14), a ragged batch, the largest
 # orders, and one matrix.
 KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48), (4096, 32),
-                 (1, 8), (1, 14), (1024, 8), (1024, 14)]
+                 (1, 8), (1, 14), (1024, 8), (1024, 14), (1, 2), (1, 4)]
+# The one-call mixed path (phase 9) launches the kernel on one matrix: at
+# orders 2 and 4 on the warm-up, 8 and 14 on random_lcqp(8, 2, 2).
+API_SHAPES = [(1, 2), (1, 4), (1, 8), (1, 14)]
 # Kernel and plain version do the same IEEE float32 operations in the same
 # order (the kernel is built with --fmad=false), so the kernel is held to
 # bit-for-bit equality with the plain version: tolerance 0.
@@ -109,6 +135,17 @@ PATHS = {
         floor=124, audit_ceiling=CIRCLE_AUDIT_CEILING, pinned=dict(
             certified=124, stages={0: 4, 2: 103, 3: 12, 4: 5, 5: 4},
             iter_total_sum=3454, launches_by_m={}, strict_audit_fails=16)),
+}
+# The example scripts tests/test_examples.py runs, each with a line it
+# must print.
+EXAMPLE_SCRIPTS = {
+    "warm_up": "status: S_STATIONARY_SOLUTION",
+    "warm_up_binary": "second solve: SUCCESSFUL_RETURN",
+    "warm_up_w_A": "xOpt =",
+    "warm_up_osqp": "yOpt =",
+    "warm_up_sparse": "S-Stationary solution found",
+    "test_max_penalty": "expected failure reproduced",
+    "optimize_on_circle_store_steps": "solved in",
 }
 # Written before each timed kernel call to push its inputs out of L2
 # (50 MB on an H100): 256 MiB of float32.
@@ -311,6 +348,188 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     phase(name, t0, f"certified={got['certified']}")
 
 
+def circle_oracle(x):
+    """The JAX package's OptimizeOnCircle check (``tests/test_examples.py``,
+    from ``OptimizeOnCircle.cpp:144-145``): x[:2] within 5e-3 of the global
+    solution (0.1811, -0.9835) or the local one (0.9764, -0.2183), and on
+    the unit circle to 2e-3."""
+    x = np.asarray(x)[:2]
+    d = min(np.linalg.norm(x - [0.1811, -0.9835]),
+            np.linalg.norm(x - [0.9764, -0.2183]))
+    return bool(d < 5e-3 and abs(np.linalg.norm(x) - 1.0) < 2e-3)
+
+
+def check_printed_table(text, passes):
+    """Raise unless ``text`` holds the INNER table of a solve of ``passes``
+    passes (its header and one row per pass) and the S-stationary banner;
+    return the number of rows."""
+    rows = [line for line in text.splitlines()
+            if re.fullmatch(r" *\d+ \| +\d+ \|( +\S+ \|){5} +\d+", line)]
+    if " outer | inner |  station   |  complem   |" not in text:
+        raise AssertionError("iteration table: no header")
+    if len(rows) != passes:
+        raise AssertionError(f"iteration table: {len(rows)} rows, "
+                             f"{passes} passes")
+    if "## S-Stationary solution found ##" not in text:
+        raise AssertionError("iteration table: no S-stationary banner")
+    return len(rows)
+
+
+def launches_by_m(gj):
+    """The kernel's launches by order since its counts were set to 0, and
+    set them to 0 again."""
+    got = dict(sorted(gj.launch_counts.items()))
+    gj.launch_count = 0
+    gj.launch_counts.clear()
+    return got
+
+
+def run_api(lt, main_sol, opts):
+    """Phase 9 (see the module docstring); raises on any failed check."""
+    import scipy.sparse as sp
+
+    from lcqpow_tpu_torch.api import lcqpow
+    from lcqpow_tpu_torch.ops import gj_inverse as gj
+    from lcqpow_tpu_torch.parallel import (fleet_summary, make_mesh,
+                                           solve_batch_sharded)
+    from lcqpow_tpu_torch.problems import (optimize_on_circle, random_lcqp,
+                                           warmup_fleet)
+
+    t_phase = time.perf_counter()
+    wu = dict(Q=[[2.0, 0.0], [0.0, 2.0]], g=[-2.0, -2.0], L=[[1.0, 0.0]],
+              R=[[0.0, 1.0]])
+    S_POINTS = np.array([[1.0, 0.0], [0.0, 1.0]])
+
+    def start():
+        """Set the kernel's counts to 0 and start a step's clock."""
+        torch.cuda.synchronize()
+        launches_by_m(gj)
+        return time.perf_counter()
+
+    def step(name, t0, msg):
+        torch.cuda.synchronize()
+        print(f"[api] {name} {msg} launches_by_m={launches_by_m(gj)} "
+              f"wall_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    # 1. OptimizeOnCircle N = 100 through LCQProblem, from CSC matrices.
+    t0 = start()
+    data, x0 = optimize_on_circle(100, as_numpy=True)
+    csc = lambda a: sp.csc_matrix(np.asarray(a))
+    lcqp = lt.LCQProblem(data.nV, data.nC, data.nComp)
+    lcqp.set_options(lt.Options(print_level=lt.PrintLevel.NONE,
+                                qp_solver=lt.QPSolver.OSQP_SPARSE,
+                                stationarity_tolerance=1e-2))
+    ret = lcqp.load_lcqp(csc(data.Q), data.g, csc(data.L), csc(data.R),
+                         A=csc(data.A), lbA=data.lbA, ubA=data.ubA, x0=x0)
+    ret = lcqp.run_solver() if ret == 0 else ret
+    x = lcqp.get_primal_solution()
+    st = lcqp.get_output_statistics()
+    if ret != 0 or x.shape != (202,) or not circle_oracle(x):
+        raise AssertionError(f"circle N=100 via LCQProblem: ret={ret!r} "
+                             f"x[:2]={None if x is None else x[:2]}")
+    step("circle-N100-lcqproblem", t0,
+         f"ret={lt.ReturnValue(ret).name} x01={x[:2].round(6).tolist()} "
+         f"iter_total={st.get_iter_total()} "
+         f"subproblem_iter={st.get_subproblem_iter()} "
+         f"solve_s={lcqp.elapsed_time:.3f}")
+
+    # 2. The one-call mixed path, against the port's CPU run.
+    t0 = start()
+    rng = np.random.default_rng(0)
+    problems = [wu] + [
+        {k: np.asarray(getattr(d, k))
+         for k in ("Q", "g", "L", "R", "A", "lbA", "ubA")}
+        for d in (random_lcqp(rng, nV=8, nC=2, nComp=2, as_numpy=True)
+                  for _ in range(8))]
+    params = {"printLevel": 0, "perturbStep": False}
+    launches = {}
+    worst = 0.0
+    for i, prob in enumerate(problems):
+        x, _, st = lcqpow(**prob, params=params, mixed=True)
+        for m, c in launches_by_m(gj).items():
+            launches[m] = launches.get(m, 0) + c
+        xc, _, stc = lcqpow(**prob, params=params, mixed=True, device="cpu")
+        worst = max(worst, float(np.abs(x - xc).max()))
+        if not (st["exit_flag"] == stc["exit_flag"] == 0
+                and np.abs(x - xc).max() <= 1e-9):
+            raise AssertionError(f"lcqpow mixed, problem {i}: card {st}, "
+                                 f"cpu {stc}, |dx|={np.abs(x - xc).max():.3e}")
+    if not launches:
+        raise AssertionError("lcqpow mixed: no kernel launch")
+    torch.cuda.synchronize()
+    print(f"[api] lcqpow-mixed problems={len(problems)} certified="
+          f"{len(problems)} max_abs_dx_vs_cpu={worst:.3e} launches_by_m="
+          f"{dict(sorted(launches.items()))} wall_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+
+    # 3. The reference text format.
+    t0 = start()
+    with tempfile.TemporaryDirectory() as d:
+        for k, v in wu.items():
+            lt.io.write_vector(os.path.join(d, f"{k}.txt"), np.ravel(v))
+        lcqp = lt.LCQProblem()
+        ret = lcqp.load_lcqp_from_files(d)
+    lcqp.set_options(lt.Options(print_level=lt.PrintLevel.NONE))
+    ret = lcqp.run_solver() if ret == 0 else ret
+    x = lcqp.get_primal_solution()
+    status = int(lcqp.get_solution().algo_status)
+    if not (ret == 0 and np.abs(S_POINTS - x).max(1).min() < 1e-8
+            and status == lt.AlgorithmStatus.S_STATIONARY_SOLUTION):
+        raise AssertionError(f"file load: ret={ret!r} x={x} status={status}")
+    step("file", t0, f"x={x.round(12).tolist()} "
+         f"status={lt.AlgorithmStatus(status).name}")
+
+    # 4. Iteration printing.
+    t0 = start()
+    lcqp = lt.LCQProblem(2, 0, 1)
+    lcqp.set_options(lt.Options(print_level=lt.PrintLevel.INNER_LOOP_ITERATES))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = lcqp.load_lcqp(**wu)
+        ret = lcqp.run_solver() if ret == 0 else ret
+    if ret != 0:
+        raise AssertionError(f"printing run: ret={ret!r}")
+    rows = check_printed_table(buf.getvalue(),
+                               lcqp.get_output_statistics().get_iter_total())
+    step("printing", t0, f"rows={rows} chars={len(buf.getvalue())}")
+
+    # 5. Sharding, and the main path's fleet summary.
+    t0 = start()
+    fleet = warmup_fleet(1024)
+    mesh = make_mesh()
+    a = solve_batch_sharded(fleet, opts, mesh=mesh)
+    b = lt.solve_batch(fleet, opts)
+    for name in ("x", "y", "ret", "algo_status"):
+        if not same_bits(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"solve_batch_sharded differs in {name}")
+    if not torch.equal(a.stats.iter_total, b.stats.iter_total):
+        raise AssertionError("solve_batch_sharded differs in iter_total")
+    summary = fleet_summary(main_sol)
+    if (summary["solved"], summary["certified_by_stage"]) \
+            != (B_MAIN, {2: B_MAIN - 1, 3: 1}):
+        raise AssertionError(f"fleet_summary of the main path: {summary}")
+    step("sharding", t0, f"mesh={[str(d) for d in mesh]} bitwise=True "
+         f"solved={int((a.ret == 0).sum())}/1024 main_summary={summary}")
+
+    # 6. The example scripts, on the card.
+    t0 = start()
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, want in EXAMPLE_SCRIPTS.items():
+        path = os.path.join(here, "examples_torch", name + ".py")
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = [path]
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        if want not in buf.getvalue():
+            raise AssertionError(f"example {name}: no {want!r} in its output")
+    step("examples", t0, f"scripts={len(EXAMPLE_SCRIPTS)}")
+    phase("api", t_phase, "ok")
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -471,6 +690,9 @@ def main():
              lambda: lt.solve_batch_mixed(fleet, circle_opts, x0=x0,
                                           chunk=32, escalate=3),
              fleet, circle_opts, **PATHS["circle-N100"])
+
+    # 9. the reference-compatible surface
+    run_api(lt, sol, opts)
 
     main_row = rows[(4096, 14)]
     print(json.dumps({"kernels": [{

@@ -4,7 +4,10 @@ A batched solver for Quadratic Programs with linear Complementarity
 constraints (LCQPs): the penalty homotopy with the polish-first ADMM or the
 block-pivot active-set (PAS) inner engine, the f32-predictor /
 double-word-f32 corrector pipeline with certification and escalation,
-chunked fleets and an f64 host audit of certified solutions.  The batch
+chunked fleets, an f64 host audit of certified solutions, the
+reference-compatible surface (the :class:`LCQProblem` object API, the
+one-call :func:`api.lcqpow`, CSC and file ingestion, messages and
+iteration printing) and multi-card fleets (:mod:`.parallel`).  The batch
 axis is written out (every tensor carries a leading lane axis); the batched
 SPD inverse of small orders at the heart of every polish and corrector KKT
 solve is a hand-written CUDA kernel (``csrc/gj_inverse.cu``), built with
@@ -35,10 +38,16 @@ from .stats import Stats, Trajectories
 from .solver import Solution, solve
 from .mixed import solve_mixed, solve_batch_mixed
 from .batch import solve_batch
+from .compat import LCQProblem
 from .audit import audit_solution
+from .messages import message, print_message, print_solution, solution_banner
+from . import api
 from . import batch
 from . import convert
+from . import io
+from . import messages
 from . import ops
+from . import parallel
 from . import problems
 
 __version__ = "0.2.0"
@@ -50,6 +59,8 @@ __all__ = [
     "LCQPData", "LCQPError", "make_lcqp", "pad_lcqp", "stack_lcqps",
     "Stats", "Trajectories",
     "Solution", "solve", "solve_mixed", "solve_batch_mixed",
-    "solve_batch", "audit_solution",
-    "batch", "convert", "ops", "problems",
+    "solve_batch", "LCQProblem", "audit_solution",
+    "message", "print_message", "print_solution", "solution_banner",
+    "api", "batch", "convert", "io", "messages", "ops", "parallel",
+    "problems",
 ]

@@ -20,9 +20,8 @@ Every stage is batched with a leading lane axis and per-lane loop masks
 each constant and branch; they are kept here unchanged.  The corrector's
 KKT pass has the same three forms as the polish (uncompressed Schur,
 compressed Schur, range space), and :func:`solve_batch_mixed` chunks
-medium-shape fleets.
-
-Not ported yet: the multi-host escalation path.
+medium-shape fleets.  With several processes (``torch.distributed``),
+see :func:`_resolve_kkt_form` and :func:`_escalate_failed`.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .constants import INFTY
 from .data import LCQPData
@@ -40,7 +40,7 @@ from .ops.chol import spd_inverse, spd_inverse_light
 from .ops.df32 import DF
 from .ops.linalg import absmax as _amax, eye, lane_where, mtv, mv
 from .options import Options
-from .solver import Solution, _classify, solve
+from .solver import Solution, _as_batch, _classify, _on_device, solve
 from .solvers.admm import _ruiz_equilibrate, compress_rows, compression_cap
 from .stats import Stats
 from .types import AlgorithmStatus, PrintLevel, ReturnValue
@@ -480,12 +480,16 @@ _RANGE_LAMBDA_MAX = 10.0
 def _resolve_kkt_form(data: LCQPData, options: Options) -> Options:
     """Resolve ``ADMMOptions.kkt_form == "auto"`` from the problem structure
     (lane 0 of a batch): "schur" for m <= 64 or m <= n, else a power
-    iteration on the row-normalized constraint system decides."""
+    iteration on the row-normalized constraint system decides.  With a
+    process group of several ranks it is "schur", as in the JAX package
+    with several processes: each rank holds other lanes, and an estimate
+    from each rank's lane 0 could give the ranks different forms."""
     if options.admm.kkt_form != "auto":
         return options
     n = data.nV
     m = data.nC + 2 * data.nComp + n
-    if m <= 64 or m <= n:
+    if m <= 64 or m <= n or (dist.is_available() and dist.is_initialized()
+                             and dist.get_world_size() > 1):
         return options.replace(admm=dataclasses.replace(
             options.admm, kkt_form="schur"))
     A = data.A_full.detach().to("cpu", torch.float64).numpy()
@@ -515,8 +519,19 @@ def solve_mixed(data: LCQPData, options: Options = Options(),
                 y0: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 n_corrector_iters: int = 25) -> Solution:
-    """Mixed-precision solve of a batch of LCQPs (leading lane axis), on the
-    device of ``data``.  Same contract as :func:`solver.solve`."""
+    """Mixed-precision solve of a batch of LCQPs (leading lane axis on every
+    field of ``data`` and on ``x0``/``y0``), or of one unbatched instance,
+    on the device of ``data``.  Same contract as :func:`solver.solve`: an
+    unbatched instance gets a lane axis for the solve, and every field of
+    the :class:`Solution` loses it again."""
+    x0, y0 = _on_device(data, x0), _on_device(data, y0)
+    data, squeeze = _as_batch(data)
+    if squeeze:
+        x0 = None if x0 is None else x0.unsqueeze(0)
+        y0 = None if y0 is None else y0.unsqueeze(0)
+        sol = solve_mixed(data, options, x0=x0, y0=y0, generator=generator,
+                          n_corrector_iters=n_corrector_iters)
+        return sol.map(lambda a: a.squeeze(0))
     options = _resolve_kkt_form(data, options)
     data32 = data.map(lambda a: a.to(_F32))
     m_rows = data.nC + 2 * data.nComp + data.nV
@@ -633,7 +648,16 @@ def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
     A chunked fleet retries at chunk width ``min(chunk, 8)``, as the JAX
     package does.  The JAX package also pads each retry to a power-of-two
     bucket of repeated lanes so that few shapes compile; nothing compiles
-    here, so the retry holds the failed lanes only."""
+    here, so the retry holds the failed lanes only.
+
+    Several processes (``torch.distributed``): this same branch runs on
+    each rank's own lanes.  The JAX package re-solves the whole fleet in
+    each round when it runs over several hosts, because a host cannot
+    index lanes that live on another host's chips; in torch every lane a
+    rank holds is local to it, so the rank gathers its failed lanes as one
+    process does.  That costs a retry of the failed lanes only, needs no
+    collective (ranks may take different numbers of rounds), and gives each
+    rank the result of a one-process solve of its lanes."""
     dev = data.Q.device
     bad = torch.nonzero(sol.ret != _SUCCESS).flatten()
     for r in range(rounds):

@@ -1,2 +1,2 @@
 """Dense linear-algebra layer: batched helpers, the Gauss-Jordan inverse
-kernel, SPD inverses and double-word f32 arithmetic."""
+kernel, SPD inverses, double-word f32 arithmetic and CSC ingestion."""

@@ -30,6 +30,21 @@ def eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def matrix_multiplication(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A @ b`` (reference ``Utilities::MatrixMultiplication``,
+    ``src/Utilities.cpp:38-47``).  ``b`` is a vector per lane when it has
+    one dimension fewer than ``A``, else a matrix."""
+    return mv(A, b) if b.ndim == A.ndim - 1 else A @ b
+
+
+def transposed_matrix_multiplication(A: torch.Tensor,
+                                     b: torch.Tensor) -> torch.Tensor:
+    """``A' @ b`` (reference ``TransponsedMatrixMultiplication``,
+    ``src/Utilities.cpp:62-72``); ``b`` as in
+    :func:`matrix_multiplication`."""
+    return mtv(A, b) if b.ndim == A.ndim - 1 else A.mT @ b
+
+
 def matrix_symmetrization_product(L: torch.Tensor,
                                   R: torch.Tensor) -> torch.Tensor:
     """``C = L'R + R'L`` (reference ``MatrixSymmetrizationProduct``,
@@ -37,6 +52,45 @@ def matrix_symmetrization_product(L: torch.Tensor,
     ``1/2 x'Cx = (Lx)'(Rx)``."""
     LtR = L.mT @ R
     return LtR + LtR.mT
+
+
+def affine_linear_transformation(alpha, A: torch.Tensor, b: torch.Tensor,
+                                 c: torch.Tensor) -> torch.Tensor:
+    """``d = alpha*A@b + c`` (reference ``AffineLinearTransformation``,
+    ``src/Utilities.cpp:176-186``)."""
+    return alpha * matrix_multiplication(A, b) + c
+
+
+def weighted_matrix_add(alpha, A, beta, B) -> torch.Tensor:
+    """``alpha*A + beta*B`` (reference ``WeightedMatrixAdd``,
+    ``src/Utilities.cpp:202-206``)."""
+    return alpha * A + beta * B
+
+
+def weighted_vector_add(alpha, a, beta, b) -> torch.Tensor:
+    """``alpha*a + beta*b`` (reference ``WeightedVectorAdd``,
+    ``src/Utilities.cpp:208-211``)."""
+    return alpha * a + beta * b
+
+
+def quadratic_form_product(Q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``p'Qp`` per lane (reference ``QuadraticFormProduct``,
+    ``src/Utilities.cpp:214-225``)."""
+    return (p * mv(Q, p)).sum(-1)
+
+
+def dot_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a'b`` per lane (reference ``DotProduct``,
+    ``src/Utilities.cpp:244-250``)."""
+    return (a * b).sum(-1)
+
+
+def max_abs(a: torch.Tensor) -> torch.Tensor:
+    """Infinity norm ``max_i |a_i|`` per lane.  The reference's ``MaxAbs``
+    (``src/Utilities.cpp:253-265``) computes the infinity norm although its
+    doc comment says "1-norm"; the behaviour, not the comment, is kept: it
+    feeds the stationarity check (``src/LCQProblem.cpp:1151-1153``)."""
+    return absmax(a)
 
 
 def lane_where(mask: torch.Tensor, a: torch.Tensor,

@@ -21,8 +21,14 @@ The inner QP engine is chosen by ``Options.inner_solver`` through
 block-pivot active-set engine (:mod:`.solvers.pas`); both share one
 workspace and one signature.
 
-Not ported yet: iteration printing (``print_level`` is accepted and
-ignored: every solve is silent).
+Iteration printing: an unbatched solve (one instance, ``print_level >
+NONE``) prints the reference's INNER or OUTER table
+(``printIteration``/``printHeader``, ``src/LCQProblem.cpp:1528-1637``), as
+the JAX package's ``solve`` does.  Each pass then reads its row's eight
+scalars to the host once.  A batched solve prints nothing, whatever
+``print_level`` says: the JAX package prints only from an unbatched solve
+(its ``solve_batch`` and the mixed predictor force ``NONE``), and a table of
+lanes that run in lockstep would interleave them.
 """
 
 from __future__ import annotations
@@ -37,10 +43,41 @@ from .ops.linalg import absmax, eye, lane_where, mtv, mv
 from .options import Options
 from .solvers import admm, pas
 from .stats import Stats, Trajectories
-from .types import AlgorithmStatus, ReturnValue
+from .types import AlgorithmStatus, PrintLevel, ReturnValue
 
 # Inner-engine dispatch; both engines share QPWorkspace/ADMMState.
 _INNER_ENGINES = {"admm": admm.solve, "pas": pas.solve}
+
+# The INNER and OUTER tables of printIteration/printHeader
+# (src/LCQProblem.cpp:1528-1637), with the JAX package's formats.
+_INNER_HLINE = ("------+-------+------------+------------+------------"
+                "+------------+------------+-------")
+_INNER_HEADER = (_INNER_HLINE + "\n outer | inner |  station   |  complem   |"
+                 "    rho     |   norm p   |   alpha    | sub it\n"
+                 + _INNER_HLINE)
+_OUTER_HLINE = "------+------------+------------+------------+------------"
+_OUTER_HEADER = (_OUTER_HLINE + "\n outer |  station   |  complem   |"
+                 "    rho     |   norm p\n" + _OUTER_HLINE)
+
+
+def print_iteration(level: PrintLevel, outer: int, inner: int, stat: float,
+                    phi: float, rho: float, norm_p: float, alpha: float,
+                    sub_iters: int) -> None:
+    """One row of the iteration table at ``level``, with its header where
+    the cadence asks: INNER prints every pass, a header every 10 inner
+    iterations; OUTER prints only passes with ``inner == 0`` (the pass
+    after a penalty update), a header every 10 outer iterations."""
+    if level == PrintLevel.INNER_LOOP_ITERATES:
+        if inner % 10 == 0:
+            print(_INNER_HEADER)
+        print(f"{outer:6d} | {inner:5d} | {stat:10.3e} | {phi:10.3e} | "
+              f"{rho:10.3e} | {norm_p:10.3e} | {alpha:10.3e} | "
+              f"{sub_iters:6d}", flush=True)
+    elif level == PrintLevel.OUTER_LOOP_ITERATES and inner == 0:
+        if outer % 10 == 0:
+            print(_OUTER_HEADER)
+        print(f"{outer:6d} | {stat:10.3e} | {phi:10.3e} | {rho:10.3e} | "
+              f"{norm_p:10.3e}", flush=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +161,11 @@ def build_workspace(data: LCQPData, options: Options) -> admm.QPWorkspace:
                           q_proto=data.g)
 
 
+def _on_device(data: LCQPData, a):
+    """An initial guess as a tensor on the device of ``data``."""
+    return None if a is None else torch.as_tensor(a, device=data.Q.device)
+
+
 def _as_batch(data: LCQPData):
     """(data with a lane axis, whether one was added)."""
     if data.Q.ndim == 2:
@@ -138,8 +180,12 @@ def solve(data: LCQPData, options: Options = Options(),
     """Solve a batch of LCQPs (leading lane axis on every field of
     ``data`` and on ``x0``/``y0``), or one unbatched instance.  Runs on the
     device of ``data``.  ``generator`` feeds the step perturbation (default:
-    a fresh one seeded with ``options.seed`` on that device)."""
+    a fresh one seeded with ``options.seed`` on that device).  ``x0`` and
+    ``y0`` may be tensors or array-likes.  Only an unbatched solve prints
+    its iterations (``options.print_level``)."""
+    x0, y0 = _on_device(data, x0), _on_device(data, y0)
     data, squeeze = _as_batch(data)
+    print_level = options.print_level if squeeze else PrintLevel.NONE
     if squeeze:
         x0 = None if x0 is None else x0.unsqueeze(0)
         y0 = None if y0 is None else y0.unsqueeze(0)
@@ -264,6 +310,15 @@ def solve(data: LCQPData, options: Options = Options(),
         else:
             x_best, y_best, score_best = c["x_best"], c["y_best"], \
                 c["score_best"]
+
+        # 3. printIteration (:485), one lane.
+        if print_level > PrintLevel.NONE:
+            row = torch.stack([
+                t[0].to(torch.float64) for t in (
+                    c["outer"], c["inner"], stat_abs, phi_k, rho,
+                    absmax(c["pk"]), c["alphak"], c["qp_iter_k"])]).tolist()
+            print_iteration(print_level, int(row[0]), int(row[1]), *row[2:7],
+                            int(row[7]))
 
         if store:
             idx = c["total"].long()

@@ -6,6 +6,9 @@ with the batch axis leading: a solve of ``B`` lanes gives ``iter_total`` of
 shape ``(B,)`` and trajectory buffers of shape ``(B, T, ...)``, where
 ``T = max_iterations + 2`` and entry ``i`` holds total iteration ``i``
 (entries beyond a lane's ``iter_total`` are unwritten padding, NaN or 0).
+An unbatched solve (:func:`lcqpow_tpu_torch.solve` on one instance) gives
+the same fields without the lane axis; :meth:`Stats.trim` cuts its
+trajectories to the iterations taken.
 """
 
 from __future__ import annotations
@@ -76,6 +79,19 @@ class Stats:
     getRhoOpt = get_rho_opt
     getSolutionStatus = get_solution_status
     getQPSolverExitFlag = get_qp_solver_exit_flag
+
+    def trim(self) -> "Stats":
+        """Trajectories cut to the iterations actually taken (a host read
+        of ``iter_total``).  Unbatched: entry ``i < iter_total``.  Batched:
+        the time axis is cut to the largest ``iter_total`` of the lanes, and
+        a shorter lane keeps its padding beyond its own count."""
+        if self.trajectories is None:
+            return self
+        n = int(self.iter_total.max())
+        axis = self.iter_total.ndim
+        return dataclasses.replace(self, trajectories=Trajectories(**{
+            k.name: getattr(self.trajectories, k.name).narrow(axis, 0, n)
+            for k in dataclasses.fields(Trajectories)}))
 
     def map(self, fn, *others: "Stats") -> "Stats":
         """Apply ``fn`` field-wise to the per-lane tensors of this and

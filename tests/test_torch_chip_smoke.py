@@ -65,6 +65,8 @@ def test_kernel_shapes_cover_every_driven_shape():
               for m in chip_smoke.MAIN_EXPECTED["launches_by_m"]}
     driven |= {(1024, m) for m in
                chip_smoke.PATHS["pas-mixed-1024"]["pinned"]["launches_by_m"]}
+    # The api phase's one-call mixed path: one matrix at a time.
+    driven |= set(chip_smoke.API_SHAPES)
     assert driven <= set(chip_smoke.KERNEL_SHAPES)
     assert len(set(chip_smoke.KERNEL_SHAPES)) == len(chip_smoke.KERNEL_SHAPES)
 
@@ -93,3 +95,69 @@ def test_path_outcome_and_strict_audit_on_cpu():
         lt, data, dataclasses.replace(sol, x=x), opts)
     assert [b[0] for b in bad] == [2]
     assert bad[0][2] > 1e-9 and bad[0][3] > 0
+
+
+def test_api_shapes_are_the_one_call_paths_orders():
+    # lcqpow(..., mixed=True) at B = 1 hands the kernel exactly these
+    # orders: 2 and 4 on the warm-up, 8 and 14 on random_lcqp(8, 2, 2).
+    import collections
+
+    import numpy as np
+
+    import lcqpow_tpu_torch.ops.chol as chol
+    from lcqpow_tpu_torch.api import lcqpow
+    from lcqpow_tpu_torch.problems import random_lcqp
+
+    seen = collections.Counter()
+    orig = chol.gj_inverse
+
+    def record(S):
+        seen[tuple(S.shape[:2])] += 1
+        return orig(S)
+
+    params = {"printLevel": 0, "perturbStep": False}
+    d = random_lcqp(np.random.default_rng(0), nV=8, nC=2, nComp=2,
+                    as_numpy=True)
+    chol.gj_inverse = record
+    try:
+        lcqpow([[2., 0.], [0., 2.]], [-2., -2.], [[1., 0.]], [[0., 1.]],
+               params=params, mixed=True, device="cpu")
+        lcqpow(d.Q, d.g, d.L, d.R, A=d.A, lbA=d.lbA, ubA=d.ubA,
+               params=params, mixed=True, device="cpu")
+    finally:
+        chol.gj_inverse = orig
+    assert set(seen) == set(chip_smoke.API_SHAPES)
+
+
+def test_circle_oracle():
+    assert chip_smoke.circle_oracle([0.18111, -0.98348, 5.0])
+    assert chip_smoke.circle_oracle([0.9764, -0.2183])
+    assert not chip_smoke.circle_oracle([0.1973, -0.9874])    # N = 20 edge
+    assert not chip_smoke.circle_oracle([0.5, -0.6])
+
+
+def test_check_printed_table_on_cpu(capsys):
+    import lcqpow_tpu_torch as lt
+
+    lcqp = lt.LCQProblem(2, 0, 1, device="cpu")
+    lcqp.set_options(lt.Options(print_level=lt.PrintLevel.INNER_LOOP_ITERATES))
+    assert lcqp.load_lcqp([[2., 0.], [0., 2.]], [-2., -2.], [[1., 0.]],
+                          [[0., 1.]]) == 0
+    assert lcqp.run_solver() == 0
+    text = capsys.readouterr().out
+    n = lcqp.get_output_statistics().get_iter_total()
+    assert chip_smoke.check_printed_table(text, n) == n
+    with pytest.raises(AssertionError, match="rows"):
+        chip_smoke.check_printed_table(text, n + 1)
+    with pytest.raises(AssertionError, match="banner"):
+        chip_smoke.check_printed_table(text.replace("S-Stationary", "x"), n)
+    with pytest.raises(AssertionError, match="header"):
+        chip_smoke.check_printed_table(text.replace("station ", "st "), n)
+
+
+def test_launches_by_m_reads_and_resets():
+    from types import SimpleNamespace
+
+    gj = SimpleNamespace(launch_count=5, launch_counts={14: 3, 8: 2})
+    assert chip_smoke.launches_by_m(gj) == {8: 2, 14: 3}
+    assert gj.launch_count == 0 and gj.launch_counts == {}

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``lcqpow_tpu_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package, and the port solves with
-JAX made unimportable."""
+"""The port stands alone: no file of ``lcqpow_tpu_torch``, no script of
+``examples_torch`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, and the port solves with JAX made unimportable; and it exports
+every name the JAX package exports."""
 
 import ast
 import pathlib
@@ -12,6 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "lcqpow_tpu_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples_torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -52,3 +54,13 @@ def test_solves_with_jax_unimportable():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_all_covers_the_jax_package():
+    import lcqpow_tpu
+    import lcqpow_tpu_torch
+
+    missing = set(lcqpow_tpu.__all__) - set(lcqpow_tpu_torch.__all__)
+    assert not missing, sorted(missing)
+    for name in lcqpow_tpu_torch.__all__:
+        assert hasattr(lcqpow_tpu_torch, name), name
