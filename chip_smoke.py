@@ -55,8 +55,15 @@ Phases, each printing one line with its seconds:
    INNER table ``run_solver`` prints (``check_printed_table``);
    ``solve_batch_sharded`` over ``make_mesh()`` bit for bit
    ``solve_batch`` on ``warmup_fleet(1024)``, and ``fleet_summary`` of the
-   main path's solution; the seven example scripts of ``EXAMPLE_SCRIPTS``
-   from ``examples_torch/``.
+   main path's solution; ``solve_batch_sharded`` over the card named twice
+   (``TWO_STREAMS``: two worker threads, each on a stream of its own), on
+   ``warmup_fleet(1024)`` in f64 with its walls against ``solve_batch`` of
+   the two slices one after the other, in turns, and on
+   ``circle_fleet(CIRCLE_SHARD_B)`` (``CIRCLE_SHARD_ITERS`` iterations),
+   whose threads capture and replay the sweep's CUDA graphs at n = 202 at
+   the same moment, each slice bit for bit ``solve_batch`` of its lanes;
+   the seven example scripts of ``EXAMPLE_SCRIPTS`` from
+   ``examples_torch/``.
 
 Each of phases 6-8 prints its wall seconds, certified lanes, stages, mean
 iterations, the kernel's launches by matrix order, the resolved KKT form
@@ -117,6 +124,12 @@ MAIN_EXPECTED = dict(certified=B_MAIN, launches_by_m={8: 6, 14: 132},
 # order, and for the circle the lanes outside the strict audit), held
 # exactly, as MAIN_EXPECTED is.
 CIRCLE_B = 128
+# The circle fleet that two threads solve at once on the card (phase 9),
+# cut to a few homotopy iterations (every one of them inverts by the
+# graphed sweep), so the step stays near 20 s.
+CIRCLE_SHARD_B = 8
+CIRCLE_SHARD_ITERS = 6
+TWO_STREAMS = ["cuda:0", "cuda:0"]
 # The circle's ceiling on the f64 audit's max |phi| and max violation, in
 # place of the strict 2.2e-13 and 1e-9 that some of its certified lanes
 # miss (see ``run_path``): the certificate's feasibility bound
@@ -384,6 +397,39 @@ def launches_by_m(gj):
     return got
 
 
+def two_stream_shard(lt, fleet, opts, x0=None, order="sc"):
+    """``solve_batch_sharded`` of ``fleet`` over ``TWO_STREAMS`` ("c")
+    and ``solve_batch`` of its two slices one after the other ("s"), in
+    the order ``order`` gives; raises unless every concurrent run is bit
+    for bit the serial one, slice by slice.  Returns the walls by kind."""
+    from lcqpow_tpu_torch.parallel import (make_mesh, shard_batch,
+                                           solve_batch_sharded)
+
+    mesh = make_mesh(TWO_STREAMS)
+    walls = {"s": [], "c": []}
+    runs = {}
+    for kind in order:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "c":
+            sol = solve_batch_sharded(fleet, opts, mesh=mesh, x0=x0)
+        else:
+            parts = [lt.solve_batch(d, opts, x0=x) for d, x in
+                     zip(shard_batch(fleet, mesh), shard_batch(x0, mesh))]
+            sol = parts[0].map(lambda *xs: torch.cat(xs), *parts[1:])
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t)
+        runs.setdefault(kind, []).append(sol)
+    want = runs["s"][0]
+    for got in runs["c"] + runs["s"][1:]:
+        for name in ("x", "y", "ret", "algo_status"):
+            if not same_bits(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"two-stream shard differs in {name}")
+        if not torch.equal(got.stats.iter_total, want.stats.iter_total):
+            raise AssertionError("two-stream shard differs in iter_total")
+    return walls, want
+
+
 def run_api(lt, main_sol, opts):
     """Phase 9 (see the module docstring); raises on any failed check."""
     import scipy.sparse as sp
@@ -392,8 +438,8 @@ def run_api(lt, main_sol, opts):
     from lcqpow_tpu_torch.ops import gj_inverse as gj
     from lcqpow_tpu_torch.parallel import (fleet_summary, make_mesh,
                                            solve_batch_sharded)
-    from lcqpow_tpu_torch.problems import (optimize_on_circle, random_lcqp,
-                                           warmup_fleet)
+    from lcqpow_tpu_torch.problems import (circle_fleet, optimize_on_circle,
+                                           random_lcqp, warmup_fleet)
 
     t_phase = time.perf_counter()
     wu = dict(Q=[[2.0, 0.0], [0.0, 2.0]], g=[-2.0, -2.0], L=[[1.0, 0.0]],
@@ -510,6 +556,30 @@ def run_api(lt, main_sol, opts):
         raise AssertionError(f"fleet_summary of the main path: {summary}")
     step("sharding", t0, f"mesh={[str(d) for d in mesh]} bitwise=True "
          f"solved={int((a.ret == 0).sum())}/1024 main_summary={summary}")
+
+    # 5a. Two threads on two streams of the card, the warm-up fleet in f64:
+    # serial and concurrent in turns.
+    t0 = start()
+    walls, sol = two_stream_shard(lt, fleet, opts, order="sccs")
+    fmt = lambda ws: "/".join(f"{w:.3f}" for w in ws)
+    step("sharding-two-streams-warmup", t0,
+         f"mesh={TWO_STREAMS} B=1024 bitwise_by_slice=True solved="
+         f"{int((sol.ret == 0).sum())}/1024 serial_s={fmt(walls['s'])} "
+         f"concurrent_s={fmt(walls['c'])}")
+
+    # 5b. The same on a circle fleet: both threads capture and replay the
+    # sweep's graphs at once (concurrent first, so the capture is theirs).
+    t0 = start()
+    circle, x0 = circle_fleet(CIRCLE_SHARD_B)
+    circle_opts = opts.replace(stationarity_tolerance=1e-2,
+                               qp_solver=lt.QPSolver.OSQP_SPARSE,
+                               max_iterations=CIRCLE_SHARD_ITERS)
+    walls, sol = two_stream_shard(lt, circle, circle_opts, x0=x0,
+                                  order="cs")
+    step("sharding-two-streams-circle", t0,
+         f"mesh={TWO_STREAMS} B={CIRCLE_SHARD_B} bitwise_by_slice=True "
+         f"ret={sol.ret.tolist()} iter_total={sol.stats.iter_total.tolist()} "
+         f"serial_s={fmt(walls['s'])} concurrent_s={fmt(walls['c'])}")
 
     # 6. The example scripts, on the card.
     t0 = start()

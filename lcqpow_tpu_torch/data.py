@@ -103,6 +103,12 @@ class LCQPData:
                            for f in dataclasses.fields(self)})
 
 
+def _clamp_inf(x: torch.Tensor) -> torch.Tensor:
+    """Map IEEE +/-inf (and values beyond INFTY) onto the finite stand-in
+    (NaN stays NaN)."""
+    return x.clamp(-INFTY, INFTY)
+
+
 def make_lcqp(
     Q,
     g,

@@ -17,7 +17,9 @@ kernel is plain PyTorch, as it is plain ``jnp`` there.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import threading
 
 import torch
 
@@ -105,16 +107,29 @@ def _sweep_eager(M: torch.Tensor, block: int) -> torch.Tensor:
 #: uses a dozen: two orders at its chunk width and at each retry width).
 _SWEEP_GRAPHS: dict = {}
 _SWEEP_GRAPHS_MAX = 32
+#: Guards ``_SWEEP_GRAPHS`` and every capture: threads solve at once
+#: (``parallel.solve_batch_sharded``), and a process captures one graph at
+#: a time (``torch.cuda.graph``'s rule).
+_SWEEP_LOCK = threading.Lock()
 
 
-def _sweep_graphed(M: torch.Tensor, block: int) -> torch.Tensor:
-    """:func:`_sweep_eager` replayed from a CUDA graph captured at the first
-    call of each shape: the same kernels in the same order, so the same
-    bits, for one launch in place of the ~3000 small ones of a 288-row
-    sweep (their host time is what bounds the eager sweep)."""
-    key = (tuple(M.shape), M.dtype, M.device, block)
-    entry = _SWEEP_GRAPHS.get(key)
-    if entry is None:
+@dataclasses.dataclass(eq=False)
+class _SweepGraph:
+    """A captured sweep and its static buffers, shared by every caller of
+    its key.  ``lock`` makes copy-replay-clone one step on the host;
+    ``done``, recorded after each step, orders the next step's stream
+    after it on the device."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor             # static input
+    y: torch.Tensor             # static output
+    done: torch.cuda.Event
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+    dropped: bool = False
+
+
+def _capture_sweep(M: torch.Tensor, block: int) -> _SweepGraph:
+    with torch.cuda.device(M.device):
         x = M.clone()
         side = torch.cuda.Stream(M.device)
         side.wait_stream(torch.cuda.current_stream(M.device))
@@ -122,15 +137,47 @@ def _sweep_graphed(M: torch.Tensor, block: int) -> torch.Tensor:
             _sweep_eager(x, block)      # warm-up outside the capture
         torch.cuda.current_stream(M.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # On a stream of its own, in thread-local mode: the CUDA calls that
+        # other threads make during the capture are not errors.
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
             y = _sweep_eager(x, block)
-        if len(_SWEEP_GRAPHS) >= _SWEEP_GRAPHS_MAX:
-            _SWEEP_GRAPHS.pop(next(iter(_SWEEP_GRAPHS)))
-        entry = _SWEEP_GRAPHS[key] = (graph, x, y)
-    graph, x, y = entry
-    x.copy_(M)
-    graph.replay()
-    return y.clone()
+    return _SweepGraph(graph, x, y, torch.cuda.Event())
+
+
+def _drop(entry: _SweepGraph) -> None:
+    """Retire an entry once its last replay has ended, so its memory is
+    not freed under a replay still queued."""
+    with entry.lock:
+        entry.dropped = True
+        entry.done.synchronize()
+
+
+def _sweep_graphed(M: torch.Tensor, block: int) -> torch.Tensor:
+    """:func:`_sweep_eager` replayed from a CUDA graph captured at the first
+    call of each shape: the same kernels in the same order, so the same
+    bits, for one launch in place of the ~3000 small ones of a 288-row
+    sweep (their host time is what bounds the eager sweep).  The copy into
+    the graph's input, the replay and the clone of its output run on the
+    caller's current stream, after the previous caller's on any stream."""
+    key = (tuple(M.shape), M.dtype, M.device, block)
+    while True:
+        with _SWEEP_LOCK:
+            entry = _SWEEP_GRAPHS.get(key)
+            if entry is None:
+                if len(_SWEEP_GRAPHS) >= _SWEEP_GRAPHS_MAX:
+                    _drop(_SWEEP_GRAPHS.pop(next(iter(_SWEEP_GRAPHS))))
+                entry = _SWEEP_GRAPHS[key] = _capture_sweep(M, block)
+        with entry.lock:
+            if entry.dropped:           # dropped since the lookup
+                continue
+            stream = torch.cuda.current_stream(M.device)
+            stream.wait_event(entry.done)
+            entry.x.copy_(M)
+            entry.graph.replay()
+            out = entry.y.clone()
+            entry.done.record(stream)
+            return out
 
 
 def sweep_spd_inverse(M: torch.Tensor, block: int = 32) -> torch.Tensor:

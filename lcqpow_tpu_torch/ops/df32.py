@@ -67,6 +67,10 @@ def from_f64(x) -> DF:
     return DF(hi, lo)
 
 
+def to_f32(a: DF):
+    return a.hi + a.lo
+
+
 def to_f64(a: DF):
     """Recombine in float64."""
     return a.hi.to(torch.float64) + a.lo.to(torch.float64)
@@ -112,6 +116,11 @@ def add(a: DF, b: DF) -> DF:
     return fast_two_sum(s.hi, e)
 
 
+def add_f32(a: DF, b) -> DF:
+    s = two_sum(a.hi, _f32(b))
+    return fast_two_sum(s.hi, s.lo + a.lo)
+
+
 def neg(a: DF) -> DF:
     return DF(-a.hi, -a.lo)
 
@@ -131,6 +140,16 @@ def mul_f32(a: DF, b) -> DF:
     b = _f32(b)
     p = two_prod(a.hi, b)
     return fast_two_sum(p.hi, p.lo + a.lo * b)
+
+
+def scale(a: DF, s) -> DF:  # alias
+    return mul_f32(a, s)
+
+
+def abs_(a: DF) -> DF:
+    neg_mask = a.hi < 0
+    return DF(torch.where(neg_mask, -a.hi, a.hi),
+              torch.where(neg_mask, -a.lo, a.lo))
 
 
 def where(mask, a: DF, b: DF) -> DF:
@@ -174,6 +193,21 @@ def matvec_t(A, y) -> DF:
     return dot(A, y[..., :, None], axis=-2)
 
 
+def df_matvec(A, x: DF) -> DF:
+    """``A @ x`` where x is df: the hi word through the compensated
+    matvec, the lo word through an f32 one (enough: |lo| <= eps |x|)."""
+    main = matvec(A, x.hi)
+    corr = mv(A, x.lo)
+    return add(main, DF(corr, torch.zeros_like(corr)))
+
+
+def df_matvec_t(A, y: DF) -> DF:
+    """``A.T @ y`` where y is df."""
+    main = matvec_t(A, y.hi)
+    corr = mtv(A, y.lo)
+    return add(main, DF(corr, torch.zeros_like(corr)))
+
+
 def split_mat(M64) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split a float64 matrix into (hi, lo) f32 words (exact to df32)."""
     d = from_f64(M64)
@@ -193,6 +227,14 @@ def split_matvec_t(Mhi, Mlo, y: DF) -> DF:
     """``(Mhi + Mlo).T @ (y.hi + y.lo)`` to df accuracy."""
     main = matvec_t(Mhi, y.hi)
     corr = mtv(Mhi, y.lo) + mtv(Mlo, y.hi)
+    return add(main, DF(corr, torch.zeros_like(corr)))
+
+
+def df_dot(a: DF, b: DF) -> DF:
+    """Compensated dot of two df vectors along the last axis (the lo*lo
+    term is dropped)."""
+    main = dot(a.hi, b.hi)
+    corr = (a.hi * b.lo + a.lo * b.hi).sum(-1)
     return add(main, DF(corr, torch.zeros_like(corr)))
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -34,13 +35,25 @@ MAX_M = 48
 launch_count = 0
 #: The same launches by matrix order: m -> launches.
 launch_counts: dict[int, int] = {}
+#: Guards both counts: threads launch the kernel at once
+#: (``parallel.solve_batch_sharded``).
+_count_lock = threading.Lock()
+
+
+def _count_launch(m: int) -> None:
+    global launch_count
+    with _count_lock:
+        launch_count += 1
+        launch_counts[m] = launch_counts.get(m, 0) + 1
 
 
 @functools.cache
 def _kernel():
     """The C entry point of ``csrc/gj_inverse.cu``, built and loaded on
     first use, with its argument types declared (pointers and the stream as
-    ``c_void_p``, so ctypes does not cut them to 32 bits)."""
+    ``c_void_p``, so ctypes does not cut them to 32 bits).  Two threads may
+    both run this at their first launch: ``_build.load`` holds a lock and
+    loads the library once, so both get the same function."""
     fn = _build.load("gj").gj_inverse_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
@@ -74,7 +87,6 @@ def gj_inverse(S: torch.Tensor) -> torch.Tensor:
     float32, contiguous, 3-D and square with m <= ``MAX_M``; anything else
     raises (the callers route such inputs elsewhere first).
     """
-    global launch_count
     if S.device.type == "cpu":
         return gj_inverse_plain(S)
     if S.device.type != "cuda":
@@ -99,6 +111,5 @@ def gj_inverse(S: torch.Tensor) -> torch.Tensor:
         err = launch(S.data_ptr(), out.data_ptr(), S.shape[0], m, stream)
     if err != 0:
         raise RuntimeError(f"gj_inverse: kernel launch failed, cudaError {err}")
-    launch_count += 1
-    launch_counts[m] = launch_counts.get(m, 0) + 1
+    _count_launch(m)
     return out

@@ -5,11 +5,14 @@ The JAX package runs one program over all hosts: ``jax.distributed``
 joins the processes into one runtime and a fleet is one global array whose
 lanes live on every host's chips.  Here each process (rank) drives its own
 card and keeps its own lanes: nothing is exchanged during a solve, and the
-only collective is :func:`.sharding.fleet_summary`'s ``all_reduce``.
+only collective is :func:`.sharding.fleet_summary`'s ``all_reduce``.  As
+``jax.distributed.initialize`` does, :func:`initialize` ends the group it
+opens when the process exits (:func:`shutdown`).
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import os
 from typing import Optional
@@ -34,6 +37,10 @@ def initialize(init_method: Optional[str] = None,
     if a process group of several ranks is active after the call; with one
     process it is a no-op that returns False, so one script runs
     everywhere.
+
+    A group it opens is torn down when the process exits: :func:`shutdown`
+    is registered with :mod:`atexit`, so no rank closes the group's store
+    and connections while another still uses them.
     """
     if dist.is_initialized():
         return dist.get_world_size() > 1
@@ -54,7 +61,19 @@ def initialize(init_method: Optional[str] = None,
         torch.cuda.set_device(local)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank)
+    atexit.unregister(shutdown)
+    atexit.register(shutdown)
     return dist.get_world_size() > 1
+
+
+def shutdown() -> None:
+    """End the process group: ``barrier``, so that every rank has finished
+    with the group, then ``destroy_process_group``.  Every rank must call
+    it, as with any collective; a no-op without a group.  :func:`initialize`
+    registers it to run at exit, and a script may call it earlier."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 @dataclasses.dataclass(frozen=True)

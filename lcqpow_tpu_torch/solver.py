@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ._sync import any_
 from .data import LCQPData
 from .ops.linalg import absmax, eye, lane_where, mtv, mv
 from .options import Options
@@ -287,7 +288,7 @@ def solve(data: LCQPData, options: Options = Options(),
 
     while True:
         run = ~c["done"]
-        if not bool(run.any()):
+        if not any_(run):
             break
         rho = c["rho"]
         # 1. updateStep (:479, :1240-1243)

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .._sync import any_
 from ..constants import INFTY, ZERO
 from ..ops.chol import spd_inverse, spd_inverse_light
 from ..ops.linalg import absmax as _amax, eye, lane_where, mtv, mv
@@ -377,7 +378,7 @@ def _polish(ws: QPWorkspace, q, y, cfg: ADMMOptions, rounds=None,
     lanes = torch.arange(y.shape[0], device=y.device)
     for _ in range(n_rounds):
         run = active & ~found
-        if not bool(run.any()):
+        if not any_(run):
             break
         Ax = mv(ws.A, x_pol)
         rp = _amax(Ax - torch.clamp(Ax, ws.l, ws.u))
@@ -466,7 +467,7 @@ def solve(ws: QPWorkspace, q, state: ADMMState, cfg: ADMMOptions,
 
     while True:
         run = active & (status == 0) & (it < cfg.max_iter)
-        if not bool(run.any()):
+        if not any_(run):
             break
         xs_n, zs_n, ys_n = xs, zs, ys
         for _ in range(K):
@@ -491,7 +492,7 @@ def solve(ws: QPWorkspace, q, state: ADMMState, cfg: ADMMOptions,
         ys_n = lane_where(bad, torch.zeros_like(ys_n), ys_n)
         rho_n, rinv_n, Minv_n = rho_vec, rho_inv, Minv
         stiff = bad & run
-        if bool(stiff.any()):
+        if any_(stiff):
             r, ri, Mi = _refactor(ws, rho_vec, rho_inv, Minv,
                                   (rho_vec * 10.0).clamp(_RHO_MIN, _RHO_MAX),
                                   sigma)
@@ -535,7 +536,7 @@ def solve(ws: QPWorkspace, q, state: ADMMState, cfg: ADMMOptions,
             adj = (cur * ratio).clamp(1e-4, 1e4) / cur
             trigger = (status_n == 0) & torch.isfinite(ratio) \
                 & ((adj > tol) | (adj < 1.0 / tol)) & run
-            if bool(trigger.any()):
+            if any_(trigger):
                 r, ri, Mi = _refactor(
                     ws, rho_n, rinv_n, Minv_n,
                     (rho_n * adj[:, None]).clamp(_RHO_MIN, _RHO_MAX), sigma)

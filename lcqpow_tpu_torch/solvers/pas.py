@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from .._sync import any_
 from ..constants import INFTY
 from ..ops.linalg import lane_where, mv
 from ..options import ADMMOptions
@@ -61,7 +62,7 @@ def solve(ws: QPWorkspace, q, state: ADMMState, cfg: ADMMOptions,
     it = torch.zeros(ok.shape, dtype=torch.int32, device=ok.device)
     while True:
         run = active & ~ok & (it < int(cfg.pas_max_pivots))
-        if not bool(run.any()):
+        if not any_(run):
             break
         # Block pivot: drop wrong-signed multipliers, add violated rows;
         # equality rows never leave.

@@ -135,6 +135,20 @@ def test_make_lcqp_pad_and_stack_match_jax(dtype):
     assert e.value.code == pl_.ReturnValue.INVALID_LOWER_COMPLEMENTARITY_BOUND
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_clamp_inf_matches_jax(dtype):
+    from lcqpow_tpu.data import _clamp_inf as j_clamp
+    from lcqpow_tpu_torch.data import _clamp_inf as p_clamp
+
+    v = np.array([np.inf, -np.inf, 1e25, -1e25, 1e20, -1e20, 3.5, -0.0,
+                  np.nan], dtype=dtype)
+    got = p_clamp(torch.from_numpy(v)).numpy()
+    want = np.asarray(j_clamp(jnp.asarray(v)))
+    assert got.dtype == want.dtype
+    assert np.array_equal(got, want, equal_nan=True)
+    assert np.isfinite(got[:-1]).all() and np.isnan(got[-1])
+
+
 @pytest.mark.parametrize("seed", [0, 7])
 def test_random_lcqp_same_instances_and_conversion(seed):
     j = j_random_lcqp(seed, nV=8, nC=2, nComp=2)

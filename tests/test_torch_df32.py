@@ -122,3 +122,77 @@ def test_compensated_matvecs(shape):
         assert np.abs(_val(p) - exact).max() <= U_DF * n * scale
         assert np.abs(_val(p) - np.asarray(jdf.to_f64(j))).max() \
             <= U_DF * n * scale
+
+
+def test_single_word_ops_and_abs():
+    rng = np.random.default_rng(3)
+    x64 = rng.normal(size=(64, 9))
+    r = rng.normal(size=(64, 9)).astype(np.float32)
+    px, jx = pdf.from_f64(_t(x64)), jdf.from_f64(jnp.asarray(x64))
+    # The same f32 operations in the same order: bitwise.
+    assert np.array_equal(pdf.to_f32(px).numpy(), np.asarray(jdf.to_f32(jx)))
+    _same(pdf.add_f32(px, _t(r)), jdf.add_f32(jx, jnp.asarray(r)))
+    _same(pdf.scale(px, _t(r)), jdf.scale(jx, jnp.asarray(r)))
+    _same(pdf.scale(px, 0.5), jdf.scale(jx, 0.5))
+    # abs_ keys on the sign of hi: negative, positive, +0 and -0 hi, each
+    # with a nonzero lo of either sign.
+    hi = np.array([-1.5, -1.5, 2.0, 2.0, 0.0, 0.0, -0.0, -0.0], np.float32)
+    lo = np.array([1e-9, -1e-9, 1e-9, -1e-9, 1e-9, -1e-9, 1e-9, -1e-9],
+                  np.float32)
+    p = pdf.abs_(pdf.DF(_t(hi), _t(lo)))
+    j = jdf.abs_(jdf.DF(jnp.asarray(hi), jnp.asarray(lo)))
+    _same(p, j)
+    for pw, jw in ((p.hi, j.hi), (p.lo, j.lo)):
+        assert np.array_equal(np.signbit(pw.numpy()),
+                              np.signbit(np.asarray(jw)))
+    assert np.array_equal(p.hi.numpy(), np.abs(hi))
+    assert np.array_equal(p.lo.numpy(), np.where(hi < 0, -lo, lo))
+
+
+# (8, 8): the df operand shape of the JAX package's own test; (16, 6, 9):
+# its batched matvec shape.
+@pytest.mark.parametrize("shape", [(8, 8), (16, 6, 9)])
+def test_df_matvecs_df_operand(shape):
+    rng = np.random.default_rng(4)
+    *lead, m, n = shape
+    A = rng.normal(size=shape).astype(np.float32)
+    x64 = rng.normal(size=(*lead, n))
+    y64 = rng.normal(size=(*lead, m))
+    x, y = pdf.from_f64(_t(x64)), pdf.from_f64(_t(y64))
+    jx, jy = jdf.from_f64(jnp.asarray(x64)), jdf.from_f64(jnp.asarray(y64))
+    A64 = A.astype(np.float64)
+    # The lo words go through an f32 matvec that each library sums in its
+    # own order, so the two agree to df32 accuracy, not bitwise.
+    for p, j, exact, k in (
+            (pdf.df_matvec(_t(A), x), jdf.df_matvec(jnp.asarray(A), jx),
+             np.einsum("...mn,...n->...m", A64, x64), n),
+            (pdf.df_matvec_t(_t(A), y), jdf.df_matvec_t(jnp.asarray(A), jy),
+             np.einsum("...mn,...m->...n", A64, y64), m)):
+        assert p.hi.shape == exact.shape
+        scale = 1.0 + np.abs(exact).max()
+        assert np.abs(_val(p) - exact).max() <= U_DF * k * scale
+        assert np.abs(_val(p) - np.asarray(jdf.to_f64(j))).max() \
+            <= U_DF * k * scale
+
+
+def test_df_dot_cancelling_operands():
+    # a . b with b = (c, -c) against a = (u, u): the exact sum is tiny next
+    # to its terms, the case the compensated dot exists for.
+    rng = np.random.default_rng(5)
+    u64 = rng.normal(size=(16, 7)) * 1e3
+    c64 = rng.normal(size=(16, 7))
+    a64 = np.concatenate([u64, u64 * (1 + 1e-9)], axis=-1)
+    b64 = np.concatenate([c64, -c64], axis=-1)
+    pa, pb = pdf.from_f64(_t(a64)), pdf.from_f64(_t(b64))
+    ja, jb = jdf.from_f64(jnp.asarray(a64)), jdf.from_f64(jnp.asarray(b64))
+    p, j = pdf.df_dot(pa, pb), jdf.df_dot(ja, jb)
+    # The hi words' products: the same tree of EFTs as the JAX package.
+    _same(pdf.dot(pa.hi, pb.hi), jdf.dot(ja.hi, jb.hi))
+    # The cross terms are an f32 sum in each library's order: df32
+    # accuracy against the exact sum of the represented values.
+    exact = (_val(pa) * _val(pb)).sum(-1)
+    terms = np.abs(_val(pa) * _val(pb)).sum(-1).max()
+    assert np.abs(exact).max() < 1e-3 * terms
+    assert np.abs(_val(p) - exact).max() <= U_DF * 14 * terms
+    assert np.abs(_val(p) - np.asarray(jdf.to_f64(j))).max() \
+        <= U_DF * 14 * terms

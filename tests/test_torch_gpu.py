@@ -134,3 +134,77 @@ def test_sweep_graph_equals_eager(B, n, dtype):
         assert torch.equal(got, want)
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
     assert (tuple(M.shape), dtype, M.device, 32) in chol._SWEEP_GRAPHS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,dtype", [(4, 202, torch.float64),
+                                       (5, 130, torch.float32)])
+def test_sweep_graph_from_threads_equals_eager(B, n, dtype):
+    # Threads on streams of their own capture a fresh shape at the same
+    # moment and replay it from the one cache entry: each result has the
+    # bits of its eager sweep.
+    import threading
+
+    _card()
+    from lcqpow_tpu_torch.ops import chol
+
+    rng = np.random.default_rng(n)
+    Ms = []
+    for _ in range(4):
+        A = rng.normal(size=(B, n, n))
+        Ms.append(torch.from_numpy(A @ A.transpose(0, 2, 1) / n
+                                   + np.eye(n)).to(dtype).cuda())
+    wants = [chol._sweep_eager(M, 32) for M in Ms]
+    torch.cuda.synchronize()
+    gots = [[] for _ in Ms]
+    errors = []
+    start = threading.Barrier(len(Ms))
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                start.wait(30)
+                for _ in range(5):
+                    gots[i].append(chol.sweep_spd_inverse(Ms[i]))
+            stream.synchronize()
+        except BaseException as e:      # reported by the main thread
+            errors.append(e)
+            raise
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(Ms))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for got, want in zip(gots, wants):
+        assert len(got) == 5
+        for g in got:
+            assert torch.equal(g.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_sharded_solve_on_two_streams_of_one_card():
+    # A mesh naming the card twice: two worker threads on two streams, each
+    # slice bit for bit solve_batch of its lanes.
+    _card()
+    import lcqpow_tpu_torch as lt
+    from lcqpow_tpu_torch.parallel import (make_mesh, shard_batch,
+                                           solve_batch_sharded)
+    from lcqpow_tpu_torch.problems import warmup_fleet
+
+    opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=200)
+    fleet = warmup_fleet(64)
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    got = solve_batch_sharded(fleet, opts, mesh=mesh)
+    parts = [lt.solve_batch(d, opts) for d in shard_batch(fleet, mesh)]
+    for name in ("x", "y", "ret", "algo_status"):
+        want = torch.cat([getattr(p, name) for p in parts])
+        a = getattr(got, name)
+        assert torch.equal(a, want)
+        if a.is_floating_point():
+            assert torch.equal(a.view(torch.uint8), want.view(torch.uint8))

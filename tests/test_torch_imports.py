@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``lcqpow_tpu_torch``, no script of
-``examples_torch`` and not ``chip_smoke.py`` imports JAX or the JAX
-package, and the port solves with JAX made unimportable; and it exports
-every name the JAX package exports."""
+``examples_torch``, no tool of the port (``tools/*torch*.py``) and not
+``chip_smoke.py`` imports JAX or the JAX package, and the port solves with
+JAX made unimportable; and it exports every name the JAX package
+exports."""
 
 import ast
 import pathlib
@@ -14,6 +15,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "lcqpow_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "examples_torch").glob("*.py")) \
+    + sorted((ROOT / "tools").glob("*torch*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 

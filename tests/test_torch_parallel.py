@@ -1,14 +1,17 @@
 """The port's ``parallel`` package on the CPU: ``fleet_summary`` against the
 JAX package's on the same solution, the sharded solve over CPU "devices"
-against ``solve_batch``, and one two-process run on a gloo process group
+(its worker threads, one per slice, against ``solve_batch`` of each slice,
+and a worker's exception reaching the caller), the kernel's launch counts
+under threads, one two-process run on a gloo process group
 (``distributed.initialize``, ``host_local_batch_to_global``, the
 cross-rank ``fleet_summary``, the mixed pipeline's "schur" pin and its
-per-rank escalation).
+per-rank escalation), and the group's teardown at exit and by
+``distributed.shutdown``.
 
 Tolerances: the summaries are equal dicts (the same lanes in, the same
 counts out; the means in float32 as the JAX package takes them); sharded
-and per-rank solves are bit for bit ``solve_batch``'s, with
-``perturb_step=False`` where the slices would draw differently.
+and per-rank solves are bit for bit ``solve_batch``'s of the same lanes,
+and of the whole fleet with ``perturb_step=False``.
 """
 
 import json
@@ -17,6 +20,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 
 import jax.numpy as jnp
@@ -88,19 +92,118 @@ def test_shard_batch_splits_lanes_in_order():
     assert shard_batch(None, make_mesh(["cpu"] * 3)) == [None] * 3
 
 
-@pytest.mark.parametrize("devices,perturb", [(1, True), (2, False)],
-                         ids=["one_device", "two_devices"])
-def test_solve_batch_sharded_equals_solve_batch(devices, perturb):
+# One device: solve_batch itself, no thread.  Two and four CPU "devices":
+# the slices in concurrent worker threads, each bit for bit solve_batch of
+# its lanes (with its own draws when the perturbation is on), and with it
+# off the whole fleet's solve too (the CPU sums a slice as the full width).
+@pytest.mark.parametrize("devices,perturb,lanes",
+                         [(1, True, 16), (2, False, 16), (4, True, 8)],
+                         ids=["one_device", "two_devices",
+                              "four_devices_threaded"])
+def test_solve_batch_sharded_equals_solve_batch(devices, perturb, lanes):
     opts = OPTS.replace(perturb_step=perturb)
-    data = warmup_fleet(16, device="cpu")
-    x0 = 0.1 * torch.ones(16, 8, dtype=torch.float64)
-    got = solve_batch_sharded(data, opts, mesh=make_mesh(["cpu"] * devices),
-                              x0=x0)
-    want = pl_.solve_batch(data, opts, x0=x0)
-    for a, b in ((got.x, want.x), (got.y, want.y), (got.ret, want.ret),
-                 (got.stats.iter_total, want.stats.iter_total),
-                 (got.stats.rho_opt, want.stats.rho_opt)):
-        assert torch.equal(a, b)
+    data = warmup_fleet(lanes, device="cpu")
+    x0 = 0.1 * torch.ones(lanes, 8, dtype=torch.float64)
+    mesh = make_mesh(["cpu"] * devices)
+    got = solve_batch_sharded(data, opts, mesh=mesh, x0=x0)
+    parts = [pl_.solve_batch(d, opts, x0=x) for d, x in
+             zip(shard_batch(data, mesh), shard_batch(x0, mesh))]
+    wants = [parts[0].map(lambda *xs: torch.cat(xs), *parts[1:])]
+    if not perturb:
+        wants.append(pl_.solve_batch(data, opts, x0=x0))
+    for want in wants:
+        for a, b in ((got.x, want.x), (got.y, want.y), (got.ret, want.ret),
+                     (got.stats.iter_total, want.stats.iter_total),
+                     (got.stats.rho_opt, want.stats.rho_opt)):
+            assert torch.equal(a, b)
+
+
+def test_solve_batch_sharded_raises_a_workers_exception(monkeypatch):
+    # The slice of 2 lanes fails at once; the others start their solves
+    # after it has failed (waiting outside the workers' baton), and the
+    # caller sees the failure only after every worker has ended.
+    from lcqpow_tpu_torch.parallel import sharding
+
+    real = sharding._solve_slice
+    failed = threading.Event()
+    ended = []
+
+    def solve_slice(dev, stream, baton, data, *args):
+        if data.Q.shape[0] == 2:
+            failed.set()
+            raise FloatingPointError("slice failed")
+        assert failed.wait(30)
+        sol = real(dev, stream, baton, data, *args)
+        ended.append(data.Q.shape[0])
+        return sol
+
+    monkeypatch.setattr(sharding, "_solve_slice", solve_slice)
+    before = set(threading.enumerate())
+    with pytest.raises(FloatingPointError, match="slice failed"):
+        solve_batch_sharded(warmup_fleet(11, device="cpu"), OPTS,
+                            mesh=make_mesh(["cpu"] * 4))
+    assert sorted(ended) == [3, 3, 3]
+    assert set(threading.enumerate()) <= before
+
+
+@pytest.mark.parametrize("hold_s,handed_over", [(0.0, True), (60.0, False)],
+                         ids=["every_sync", "within_slice"])
+def test_baton_is_handed_over_at_host_syncs(hold_s, handed_over):
+    # A host sync (_sync.any_) runs its wait without the baton once the
+    # thread has held it for its time slice, and takes it back before it
+    # returns; outside a baton it leaves the lock alone.
+    from lcqpow_tpu_torch import _sync
+
+    baton = _sync.Baton(hold_s)
+    seen = []
+
+    class Flag:
+        def __bool__(self):
+            seen.append(baton.lock.locked())
+            return True
+
+    class Synced:
+        def any(self):
+            return Flag()
+
+    with baton.held():
+        assert baton.lock.locked()
+        assert _sync.any_(Synced())
+        assert baton.lock.locked()
+    assert not baton.lock.locked()
+    assert _sync.any_(Synced())
+    assert seen == [not handed_over, False]
+    assert _sync.any_(torch.tensor([False, True]))
+    assert not _sync.any_(torch.zeros(3, dtype=torch.bool))
+    assert _sync.Baton().hold_s == sys.getswitchinterval()
+
+
+def test_gj_launch_counts_keep_every_threaded_update():
+    # Eight threads count launches at a switch interval short enough that
+    # an unlocked read-modify-write loses updates.
+    from lcqpow_tpu_torch.ops import gj_inverse as gj
+
+    saved = gj.launch_count, dict(gj.launch_counts)
+    interval = sys.getswitchinterval()
+    gj.launch_count = 0
+    gj.launch_counts.clear()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda m=m: [
+            gj._count_launch(m % 3 + 1) for _ in range(4000)])
+            for m in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert gj.launch_count == 32000
+        assert gj.launch_counts == {1: 12000, 2: 12000, 3: 8000}
+    finally:
+        sys.setswitchinterval(interval)
+        gj.launch_count = saved[0]
+        gj.launch_counts.clear()
+        gj.launch_counts.update(saved[1])
 
 
 _WORKER = textwrap.dedent(r"""
@@ -189,3 +292,57 @@ def test_two_process_gloo_run():
 
     circle, _ = optimize_on_circle(20, device="cpu")
     assert mixed._resolve_kkt_form(circle, OPTS).admm.kkt_form == "range"
+
+
+_TEARDOWN_WORKER = textwrap.dedent(r"""
+    import atexit, json, sys
+    rank, port = int(sys.argv[1]), sys.argv[2]
+    import torch
+    import torch.distributed as dist
+    from lcqpow_tpu_torch.parallel import distributed
+
+    # Registered before initialize, so it runs after the teardown that
+    # initialize registers (atexit runs last-in, first-out).
+    atexit.register(lambda: print(json.dumps(
+        {"rank": rank, "at_exit_initialized": dist.is_initialized()}),
+        flush=True))
+    assert distributed.initialize(f"tcp://localhost:{port}", world_size=2,
+                                  rank=rank, device="cpu")
+    t = torch.tensor([rank + 1.0])
+    dist.all_reduce(t)
+    assert float(t) == 3.0
+    if rank == 0:
+        distributed.shutdown()
+        assert not dist.is_initialized()
+        distributed.shutdown()               # a no-op without a group
+    # Rank 1 exits straight after the all_reduce.
+""")
+
+
+def test_gloo_group_is_torn_down_at_exit_and_by_shutdown():
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, "-c", _TEARDOWN_WORKER,
+                               str(r), port], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for r in range(2)]
+    outs = []
+    deadline = time.monotonic() + 60
+    try:
+        for p in procs:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rc, out, err in outs:
+        assert rc == 0 and "terminate called" not in err, \
+            f"rank failed:\n{out}\n{err}"
+    res = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in outs]
+    assert res == [{"rank": r, "at_exit_initialized": False}
+                   for r in range(2)]
