@@ -9,8 +9,9 @@ Phases, each printing one line with its seconds:
 
 1. device: the card's name and count, then the raw
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line;
-2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``,
-   and ptxas's registers and spills of the kernels at m = 8, 14, 32, 48;
+2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``
+   (one process a library, all at once), and ptxas's registers and spills
+   of the GJ kernels at m = 8, 14, 32, 48 and of the Threefry kernel;
 3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
    Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
    (512, 48), (4096, 32), the pas-mixed-1024 path's (1024, 8) and
@@ -21,21 +22,27 @@ Phases, each printing one line with its seconds:
    the L2 cache flushed before each call, so that its inputs come from
    device memory as the bound assumes, and with them warm in L2; of the
    plain version and ``torch.linalg.inv`` (a yardstick the port never
-   calls), warm; and the kernel's call interval by CUDA events;
+   calls), warm; and the kernel's call interval by CUDA events.  Then the
+   Threefry draw (``prng.perturb_step``) against its plain PyTorch version
+   at (B, n) in ``THREEFRY_SHAPES``, with about a third of the lanes
+   inactive: bitwise equality of the keys and draws (required), and the
+   same times (no library call computes it);
 4. main: the warm-up fleet (64 ``random_lcqp(nV=8, nC=2, nComp=2)``
    instances tiled to B = 4096, bench.py's headline configuration) through
    ``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
    escalate=1)``: wall seconds, certified lanes, histogram of ``ret``, mean
-   iterations, the kernel's launches during the solve (in all and by matrix
-   order), and an f64 host audit of the certified lanes.  Lanes, launches
-   and iteration totals must equal ``MAIN_EXPECTED``;
+   iterations, the GJ kernel's launches during the solve (in all and by
+   matrix order) and the Threefry kernel's, and an f64 host audit of the
+   certified lanes.  The fleet's root key is bench.py's, ``PRNGKey(1)``
+   (``BENCH_KEY``), as on every path below.  Lanes, launches and iteration
+   totals must equal ``MAIN_EXPECTED``;
 5. reference: the warm-up LCQP's known solution, and the first 64 lanes of
    the fleet solved again on the CPU (plain versions) against the card;
 6. pas-mixed-1024: the warm-up fleet at B = 1024 through
    ``solve_batch_mixed`` with the PAS inner engine (``inner_solver="pas"``,
    ``n_corrector_iters=6``, ``escalate=0``);
 7. pas-warmup-256: the same fleet at B = 256 through the f64 homotopy
-   ``solve`` with the PAS engine;
+   (``solve_batch``) with the PAS engine;
 8. circle-N100: ``circle_fleet(CIRCLE_B)`` (OptimizeOnCircle N = 100,
    nV = 202, m = 503: the compressed Schur form and the sweep inverse)
    through ``solve_batch_mixed(chunk=32, escalate=3)`` from the lifted
@@ -48,9 +55,9 @@ Phases, each printing one line with its seconds:
    tolerance 1e-2, lifted start, f64) held to the reference's oracle
    (``circle_oracle``); ``lcqpow(..., mixed=True)`` on the warm-up and the
    first 8 ``random_lcqp(nV=8, nC=2, nComp=2)`` of ``default_rng(0)``,
-   each certified and equal to the port's CPU run to 1e-9 in x (with
-   ``perturbStep`` off: the card's and the CPU's generators draw
-   differently), with more than zero launches at B = 1; the warm-up
+   each certified and equal to the port's CPU run to 1e-9 in x (the
+   perturbation on: the card draws the CPU's bits), with more than zero
+   launches of each kernel at B = 1; the warm-up
    through the reference text format and ``load_lcqp_from_files``; the
    INNER table ``run_solver`` prints (``check_printed_table``);
    ``solve_batch_sharded`` over ``make_mesh()`` bit for bit
@@ -61,12 +68,18 @@ Phases, each printing one line with its seconds:
    the two slices one after the other, in turns, and on
    ``circle_fleet(CIRCLE_SHARD_B)`` (``CIRCLE_SHARD_ITERS`` iterations),
    whose threads capture and replay the sweep's CUDA graphs at n = 202 at
-   the same moment, each slice bit for bit ``solve_batch`` of its lanes;
+   the same moment, each slice bit for bit ``solve`` of its lanes with
+   their keys of the fleet's split;
    the seven example scripts of ``EXAMPLE_SCRIPTS`` from
-   ``examples_torch/``.
+   ``examples_torch/``;
+10. threefry-driven: every (B, n) the Threefry kernel was launched at in
+   phases 4-9 (``prng.launch_shapes``: retries, slices, one-instance
+   calls) and not held in phase 3, held bitwise against the plain
+   version as there.
 
 Each of phases 6-8 prints its wall seconds, certified lanes, stages, mean
-iterations, the kernel's launches by matrix order, the resolved KKT form
+iterations, the GJ kernel's launches by matrix order and the Threefry
+kernel's launches, the resolved KKT form
 and the f64 audit (``lcqpow_tpu_torch.audit_solution``), and raises when
 the certified lanes fall below the JAX package's count (``PATHS``), when
 the audit fails (on the circle: when a certified lane lies outside its
@@ -95,9 +108,15 @@ import numpy as np
 import torch
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and FP32
-# (non-tensor-core) operations/s.
+# (non-tensor-core) operations/s; and INT32 operations/s (NVIDIA H100 white
+# paper, SXM5, non-tensor, an IMAD counted as two).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
+# Integer operations of one Threefry-2x32 hash (csrc/threefry.cu): 20
+# rounds of add, rotate (one funnel shift) and xor, 5 key injections of
+# three adds, 2 adds and 2 xors to start.
+OPS_PER_HASH = 79
 
 B_MAIN = 4096
 # The shapes the driven paths give the kernel (the main path's 4096 lanes,
@@ -105,23 +124,44 @@ B_MAIN = 4096
 # orders, and one matrix.
 KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48), (4096, 32),
                  (1, 8), (1, 14), (1024, 8), (1024, 14), (1, 2), (1, 4)]
+# Widths of the driven fleets beside the main one, and the problems' n.
+PAS_MIXED_B = 1024
+PAS_F64_B = 256
+CIRCLE_CHUNK = 32
+WARMUP_NV = 8
+CIRCLE_NV = 202
+# The Threefry draw at the (B, n) the driven paths give it: the main
+# path's, pas-mixed-1024's and pas-warmup-256's fleets (n = 8); the
+# circle's chunks and its retries at the retry chunk of 8 lanes and at the
+# 5 lanes of its last round (n = 202); one lane (the main path's retry,
+# the api phase's LCQProblem circle, the one-call path's warm-up and
+# random_lcqp(8, 2, 2)); and a ragged batch.  Every other shape a driven
+# path launches it at is held after the paths have run (phase 10).
+THREEFRY_SHAPES = [(4096, 8), (1024, 8), (256, 8), (4095, 8), (32, 202),
+                   (8, 202), (5, 202), (1, 202), (1, 2), (1, 8)]
+# bench.py's root key, jax.random.PRNGKey(1), for every driven path.
+BENCH_KEY = 1
 # The one-call mixed path (phase 9) launches the kernel on one matrix: at
 # orders 2 and 4 on the warm-up, 8 and 14 on random_lcqp(8, 2, 2).
 API_SHAPES = [(1, 2), (1, 4), (1, 8), (1, 14)]
 # Kernel and plain version do the same IEEE float32 operations in the same
 # order (the kernel is built with --fmad=false), so the kernel is held to
 # bit-for-bit equality with the plain version: tolerance 0.
-# The main path's outcome, the same in every run since the port began (the
-# kernel is bit for bit its plain version, the rest deterministic): any
-# change is a fault.  Sums over the lanes: means 9.3499 and 2.2363.
-MAIN_EXPECTED = dict(certified=B_MAIN, launches_by_m={8: 6, 14: 132},
-                     iter_total_sum=38297, corrector_steps_sum=9160)
+# The main path's outcome on bench.py's key, the same in every card run
+# since the port draws the JAX package's bits (both kernels are bit for bit
+# their plain versions, the rest deterministic): any change is a fault.
+# Sums over the lanes: means 9.3611 and 2.2349 (the JAX package's TPU run:
+# 9.3567 and 2.2339, the same stages).
+MAIN_EXPECTED = dict(certified=B_MAIN, launches_by_m={8: 6, 14: 131},
+                     iter_total_sum=38343, corrector_steps_sum=9154,
+                     stages={2: B_MAIN - 1, 3: 1}, threefry_launches=55)
 # Paths beside the main one, from bench.py's rows.  ``floor``: the lanes
 # the JAX package certified on its TPU run (BENCH_DETAIL.json), which the
-# port must reach.  ``pinned``: the outcome of every card run so far
-# (certified lanes, lanes by certification stage or, for the plain f64
-# solve, by return code, the iteration sum, the kernel's launches by
-# order, and for the circle the lanes outside the strict audit), held
+# port must reach.  ``pinned``: the outcome of every card run since the
+# port draws the JAX package's bits (certified lanes, lanes by
+# certification stage or, for the plain f64 solve, by return code, the
+# iteration sum, the GJ kernel's launches by order, the Threefry kernel's
+# launches, and for the circle the lanes outside the strict audit), held
 # exactly, as MAIN_EXPECTED is.
 CIRCLE_B = 128
 # The circle fleet that two threads solve at once on the card (phase 9),
@@ -139,15 +179,16 @@ TWO_STREAMS = ["cuda:0", "cuda:0"]
 CIRCLE_AUDIT_CEILING = 3e-9
 PATHS = {
     "pas-mixed-1024": dict(floor=1023, pinned=dict(
-        certified=1023, stages={0: 1, 2: 1023}, iter_total_sum=9594,
-        launches_by_m={8: 3, 14: 89})),
+        certified=1023, stages={0: 1, 2: 1023}, iter_total_sum=9565,
+        launches_by_m={8: 3, 14: 90}, threefry_launches=43)),
     "pas-warmup-256": dict(floor=256, pinned=dict(
         certified=256, rets={0: 256}, iter_total_sum=2986,
-        launches_by_m={})),
+        launches_by_m={}, threefry_launches=49)),
     "circle-N100": dict(
         floor=124, audit_ceiling=CIRCLE_AUDIT_CEILING, pinned=dict(
-            certified=124, stages={0: 4, 2: 103, 3: 12, 4: 5, 5: 4},
-            iter_total_sum=3454, launches_by_m={}, strict_audit_fails=16)),
+            certified=124, stages={0: 4, 2: 101, 3: 16, 4: 6, 5: 1},
+            iter_total_sum=3470, launches_by_m={}, threefry_launches=533,
+            strict_audit_fails=15)),
 }
 # The example scripts tests/test_examples.py runs, each with a line it
 # must print.
@@ -227,6 +268,55 @@ def bound_ms(B, m):
                                    else "operations")
 
 
+def threefry_bound_ms(B, n, n_active):
+    """Least device time of one ``perturb_step`` of B lanes, n elements:
+    keys in and out (16 bytes a lane each way), the mask (1 byte a lane)
+    and r (8 bytes an element) moved once, or (4 + 2n) hashes of
+    ``OPS_PER_HASH`` integer operations for each active lane, whichever
+    takes longer; and which of the two it is."""
+    bytes_ms = (B * 33 + B * n * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_active * (4 + 2 * n) * OPS_PER_HASH / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def threefry_ptxas(log):
+    """(registers, spill stores, spill loads) of the Threefry kernel from
+    nvcc's ``-Xptxas -v`` output."""
+    regs = re.search(r"Used (\d+) registers", log)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      log)
+    if not (regs and spill):
+        raise AssertionError("no ptxas report of the Threefry kernel")
+    return int(regs.group(1)), int(spill.group(1)), int(spill.group(2))
+
+
+def lane_mask(B, seed, device="cuda"):
+    """About two thirds of B lanes active, lane 0 always."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    active = torch.rand(B, generator=g, device=device) < 0.66
+    active[0] = True
+    return active
+
+
+def hold_threefry(prng, B, n, device="cuda"):
+    """The Threefry kernel (``prng.perturb_step``) against its plain
+    version at (B, n), on keys of a fleet's split and about a third of the
+    lanes inactive: raises unless keys and draws are equal bit for bit.
+    Returns (keys, active, max |difference|)."""
+    keys = prng.split(prng.prng_key(B + n, device), B)
+    active = lane_mask(B, seed=B + n, device=device)
+    K, R = prng.perturb_step(keys, active, n)
+    KP, RP = prng.perturb_step_plain(keys, active, n)
+    err = float((K - KP).abs().max())
+    if R.numel():
+        err = max(err, float((R - RP).abs().max()))
+    if not (torch.equal(K, KP) and torch.equal(R, RP)):
+        raise AssertionError(f"Threefry kernel and plain version differ "
+                             f"at B={B} n={n}: max|diff|={err}")
+    return keys, active, err
+
+
 def ptxas_usage(log, orders):
     """(kernel, m, vector width) -> (registers, spill stores, spill loads)
     from nvcc's ``-Xptxas -v`` output, for the GJ kernels of order in
@@ -272,7 +362,8 @@ def spd_batch(B, m, seed):
 def path_outcome(sol):
     """The counts a path pins: certified lanes, lanes per certification
     stage (return codes for a plain solve), the iteration sum and the
-    kernel's launches by matrix order."""
+    kernel's launches by matrix order, and the Threefry kernel's."""
+    from lcqpow_tpu_torch import prng
     from lcqpow_tpu_torch.ops import gj_inverse as gj
 
     ret = sol.ret.cpu()
@@ -282,7 +373,8 @@ def path_outcome(sol):
             by[0]: {int(k): int(v) for k, v in zip(*torch.unique(
                 by[1], return_counts=True))},
             "iter_total_sum": int(sol.stats.iter_total.sum()),
-            "launches_by_m": dict(sorted(gj.launch_counts.items()))}
+            "launches_by_m": dict(sorted(gj.launch_counts.items())),
+            "threefry_launches": prng.launch_count}
 
 
 def strict_audit_failures(lt, data, sol, opts):
@@ -307,6 +399,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     read just after; print and check its outcome (see ``PATHS``).  With no
     ``audit_ceiling`` the f64 audit is the strict one."""
     import lcqpow_tpu_torch as lt
+    from lcqpow_tpu_torch import prng
     from lcqpow_tpu_torch.mixed import _resolve_kkt_form
     from lcqpow_tpu_torch.ops import gj_inverse as gj
 
@@ -314,6 +407,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     torch.cuda.synchronize()
     gj.launch_count = 0
     gj.launch_counts.clear()
+    prng.launch_count = 0
     t1 = time.perf_counter()
     sol = solve()
     torch.cuda.synchronize()
@@ -325,6 +419,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
           f"mean_subproblem_iter="
           f"{float(sol.stats.subproblem_iter.float().mean()):.4f} "
           f"gj_launches={gj.launch_count} "
+          f"threefry_launches={prng.launch_count} "
           f"kkt_form={_resolve_kkt_form(data, opts).admm.kkt_form} "
           f"audit={aud}", flush=True)
     if not bool(torch.isfinite(sol.x[sol.ret == 0]).all()):
@@ -389,11 +484,15 @@ def check_printed_table(text, passes):
 
 
 def launches_by_m(gj):
-    """The kernel's launches by order since its counts were set to 0, and
-    set them to 0 again."""
+    """The GJ kernel's launches by order since its counts were set to 0,
+    and the Threefry kernel's (key "threefry"), and set them to 0 again."""
+    from lcqpow_tpu_torch import prng
+
     got = dict(sorted(gj.launch_counts.items()))
+    got["threefry"] = prng.launch_count
     gj.launch_count = 0
     gj.launch_counts.clear()
+    prng.launch_count = 0
     return got
 
 
@@ -401,11 +500,15 @@ def two_stream_shard(lt, fleet, opts, x0=None, order="sc"):
     """``solve_batch_sharded`` of ``fleet`` over ``TWO_STREAMS`` ("c")
     and ``solve_batch`` of its two slices one after the other ("s"), in
     the order ``order`` gives; raises unless every concurrent run is bit
-    for bit the serial one, slice by slice.  Returns the walls by kind."""
+    for bit the serial one, slice by slice.  The serial slices take their
+    keys of the fleet's split, as the sharded call gives them.  Returns the
+    walls by kind."""
     from lcqpow_tpu_torch.parallel import (make_mesh, shard_batch,
                                            solve_batch_sharded)
+    from lcqpow_tpu_torch.solver import fleet_keys
 
     mesh = make_mesh(TWO_STREAMS)
+    keys = fleet_keys(None, opts.seed, fleet.Q.shape[0], "cuda")
     walls = {"s": [], "c": []}
     runs = {}
     for kind in order:
@@ -414,8 +517,9 @@ def two_stream_shard(lt, fleet, opts, x0=None, order="sc"):
         if kind == "c":
             sol = solve_batch_sharded(fleet, opts, mesh=mesh, x0=x0)
         else:
-            parts = [lt.solve_batch(d, opts, x0=x) for d, x in
-                     zip(shard_batch(fleet, mesh), shard_batch(x0, mesh))]
+            parts = [lt.solve(d, opts, x0=x, key=k) for d, x, k in
+                     zip(shard_batch(fleet, mesh), shard_batch(x0, mesh),
+                         shard_batch(keys, mesh))]
             sol = parts[0].map(lambda *xs: torch.cat(xs), *parts[1:])
         torch.cuda.synchronize()
         walls[kind].append(time.perf_counter() - t)
@@ -430,7 +534,7 @@ def two_stream_shard(lt, fleet, opts, x0=None, order="sc"):
     return walls, want
 
 
-def run_api(lt, main_sol, opts):
+def run_api(lt, main_sol, opts, main_stages):
     """Phase 9 (see the module docstring); raises on any failed check."""
     import scipy.sparse as sp
 
@@ -487,7 +591,7 @@ def run_api(lt, main_sol, opts):
          for k in ("Q", "g", "L", "R", "A", "lbA", "ubA")}
         for d in (random_lcqp(rng, nV=8, nC=2, nComp=2, as_numpy=True)
                   for _ in range(8))]
-    params = {"printLevel": 0, "perturbStep": False}
+    params = {"printLevel": 0}
     launches = {}
     worst = 0.0
     for i, prob in enumerate(problems):
@@ -500,12 +604,13 @@ def run_api(lt, main_sol, opts):
                 and np.abs(x - xc).max() <= 1e-9):
             raise AssertionError(f"lcqpow mixed, problem {i}: card {st}, "
                                  f"cpu {stc}, |dx|={np.abs(x - xc).max():.3e}")
-    if not launches:
-        raise AssertionError("lcqpow mixed: no kernel launch")
+    if not (launches.get("threefry") and set(launches) - {"threefry"}):
+        raise AssertionError(f"lcqpow mixed: a kernel was not launched: "
+                             f"{launches}")
     torch.cuda.synchronize()
     print(f"[api] lcqpow-mixed problems={len(problems)} certified="
           f"{len(problems)} max_abs_dx_vs_cpu={worst:.3e} launches_by_m="
-          f"{dict(sorted(launches.items()))} wall_s="
+          f"{launches} wall_s="
           f"{time.perf_counter() - t0:.3f}", flush=True)
 
     # 3. The reference text format.
@@ -552,7 +657,7 @@ def run_api(lt, main_sol, opts):
         raise AssertionError("solve_batch_sharded differs in iter_total")
     summary = fleet_summary(main_sol)
     if (summary["solved"], summary["certified_by_stage"]) \
-            != (B_MAIN, {2: B_MAIN - 1, 3: 1}):
+            != (B_MAIN, main_stages):
         raise AssertionError(f"fleet_summary of the main path: {summary}")
     step("sharding", t0, f"mesh={[str(d) for d in mesh]} bitwise=True "
          f"solved={int((a.ret == 0).sum())}/1024 main_summary={summary}")
@@ -606,7 +711,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import lcqpow_tpu_torch as lt
-    from lcqpow_tpu_torch import _build
+    from lcqpow_tpu_torch import _build, prng
     from lcqpow_tpu_torch.ops import gj_inverse as gj
     from lcqpow_tpu_torch.problems import circle_fleet, warm_up, warmup_fleet
 
@@ -634,6 +739,10 @@ def main():
     for (name, m, vec), (regs, st, ld) in sorted(usage.items()):
         print(f"[ptxas] {name}<{m}{f',{vec}' if vec else ''}> "
               f"registers={regs} spill_stores={st} spill_loads={ld}")
+    regs, st, ld = threefry_ptxas(
+        paths["threefry"].with_suffix(".log").read_text())
+    print(f"[ptxas] perturb_step_kernel registers={regs} spill_stores={st} "
+          f"spill_loads={ld}")
     phase("build", t0, f"nvcc_seconds={_build.last_build_seconds:.3f} "
           f"libs={sorted(p.name for p in paths.values())}")
 
@@ -676,6 +785,32 @@ def main():
               f"{call_ms:.5f} (events, back-to-back calls)", flush=True)
     phase("kernel", t0, f"shapes={len(KERNEL_SHAPES)} max_abs_diff={max_err:.3e}")
 
+    # 3b. the Threefry draw vs plain
+    t0 = time.perf_counter()
+    tf_rows = {}
+    for B, n in THREEFRY_SHAPES:
+        keys, active, err = hold_threefry(prng, B, n)
+        n_active = int(active.sum())
+        call_ms = cuda_ms(lambda: prng.perturb_step(keys, active, n), 200)
+        ms = device_ms(lambda: prng.perturb_step(keys, active, n), 50,
+                       kernel="perturb_step", flush=l2.zero_)
+        warm_ms = device_ms(lambda: prng.perturb_step(keys, active, n), 50,
+                            kernel="perturb_step")
+        plain_ms = device_ms(lambda: prng.perturb_step_plain(keys, active, n),
+                             5)
+        plain_call_ms = cuda_ms(
+            lambda: prng.perturb_step_plain(keys, active, n), 20)
+        bound, bound_by = threefry_bound_ms(B, n, n_active)
+        tf_rows[(B, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=bound_by, max_abs_err=err)
+        print(f"[threefry] B={B} n={n} active={n_active} bitwise=True "
+              f"device_ms: kernel={ms:.5f} (L2 flushed) kernel_l2_warm="
+              f"{warm_ms:.5f} plain={plain_ms:.5f} bound={bound:.6g} "
+              f"({bound_by}) share_of_bound={bound / ms:.3f}; "
+              f"kernel_call_ms={call_ms:.5f} plain_call_ms="
+              f"{plain_call_ms:.5f} (events, back-to-back calls)", flush=True)
+    phase("threefry", t0, f"shapes={len(THREEFRY_SHAPES)} bitwise=True")
+
     # 4. main path
     t0 = time.perf_counter()
     opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=200)
@@ -685,19 +820,28 @@ def main():
     lt.solve_batch_mixed(warmup_fleet(64), opts, n_corrector_iters=6)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
+    key = prng.prng_key(BENCH_KEY, "cuda")
     gj.launch_count = 0
     gj.launch_counts.clear()
+    prng.launch_count = 0
+    # Every shape the driven paths (phases 4-9) launch the draw at.
+    prng.launch_shapes.clear()
     t1 = time.perf_counter()
-    sol = lt.solve_batch_mixed(data, opts, n_corrector_iters=6, escalate=1)
+    sol = lt.solve_batch_mixed(data, opts, key=key, n_corrector_iters=6,
+                               escalate=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = gj.launch_count
     launches_by_m = dict(sorted(gj.launch_counts.items()))
+    tf_launches = prng.launch_count
     ret = sol.ret.cpu().numpy()
     certified = int((ret == 0).sum())
+    stages = {int(k): int(v) for k, v in zip(*torch.unique(
+        sol.stats.certified_stage.cpu(), return_counts=True))}
     got = dict(certified=certified, launches_by_m=launches_by_m,
                iter_total_sum=int(sol.stats.iter_total.sum()),
-               corrector_steps_sum=int(sol.stats.corrector_steps.sum()))
+               corrector_steps_sum=int(sol.stats.corrector_steps.sum()),
+               stages=stages, threefry_launches=tf_launches)
     hist = {int(k): int(v) for k, v in zip(*np.unique(ret, return_counts=True))}
     if tuple(sol.x.shape) != (B_MAIN, 8) or not bool(
             torch.isfinite(sol.x[sol.ret == 0]).all()):
@@ -714,8 +858,12 @@ def main():
           f"iter_total_sum={got['iter_total_sum']} corrector_steps_sum="
           f"{got['corrector_steps_sum']} "
           f"gj_launches={launches} gj_launches_by_m={launches_by_m} "
+          f"threefry_launches={tf_launches} "
           f"audit_max_phi={max_phi:.3e} "
           f"audit_max_violation={max_viol:.3e}", flush=True)
+    if not (launches and tf_launches):
+        raise AssertionError(f"main path: a kernel was not launched (GJ "
+                             f"{launches}, Threefry {tf_launches})")
     if got != MAIN_EXPECTED:
         raise AssertionError(f"main path: {got}, expected {MAIN_EXPECTED}")
     if not (max_phi <= opts.complementarity_tolerance and max_viol <= 1e-9):
@@ -732,7 +880,9 @@ def main():
             and min(np.abs(x - [1, 0]).max(), np.abs(x - [0, 1]).max()) < 1e-10):
         raise AssertionError(f"warm-up LCQP: x={x} ret={int(wu.ret[0])}")
     sub = data.map(lambda a: a[:64].cpu())
-    cpu = lt.solve_batch_mixed(sub, opts, n_corrector_iters=6, escalate=1)
+    # The first 64 lanes' keys of the fleet's split are the split over 64.
+    cpu = lt.solve_batch_mixed(sub, opts, key=prng.prng_key(BENCH_KEY),
+                               n_corrector_iters=6, escalate=1)
     both = (cpu.ret == 0) & (sol.ret[:64].cpu() == 0)
     dx = float((cpu.x - sol.x[:64].cpu()).abs()[both].max())
     same_ret = int((cpu.ret == sol.ret[:64].cpu()).sum())
@@ -745,26 +895,38 @@ def main():
 
     # 6.-8. the PAS paths and the circle path
     pas_opts = opts.replace(inner_solver="pas")
-    fleet = warmup_fleet(1024)
+    fleet = warmup_fleet(PAS_MIXED_B)
     run_path("pas-mixed-1024",
-             lambda: lt.solve_batch_mixed(fleet, pas_opts,
+             lambda: lt.solve_batch_mixed(fleet, pas_opts, key=key,
                                           n_corrector_iters=6, escalate=0),
              fleet, pas_opts, **PATHS["pas-mixed-1024"])
-    fleet = warmup_fleet(256)
-    run_path("pas-warmup-256", lambda: lt.solve(fleet, pas_opts), fleet,
+    fleet = warmup_fleet(PAS_F64_B)
+    run_path("pas-warmup-256",
+             lambda: lt.solve_batch(fleet, pas_opts, key=key), fleet,
              pas_opts, **PATHS["pas-warmup-256"])
     circle_opts = opts.replace(stationarity_tolerance=1e-2,
                                qp_solver=lt.QPSolver.OSQP_SPARSE)
     fleet, x0 = circle_fleet(CIRCLE_B)
     run_path("circle-N100",
              lambda: lt.solve_batch_mixed(fleet, circle_opts, x0=x0,
-                                          chunk=32, escalate=3),
+                                          key=key, chunk=CIRCLE_CHUNK,
+                                          escalate=3),
              fleet, circle_opts, **PATHS["circle-N100"])
 
     # 9. the reference-compatible surface
-    run_api(lt, sol, opts)
+    run_api(lt, sol, opts, MAIN_EXPECTED["stages"])
+
+    # 10. the Threefry kernel at every other shape the paths launched it at
+    t0 = time.perf_counter()
+    driven = sorted(prng.launch_shapes)
+    late = [s for s in driven if s not in THREEFRY_SHAPES]
+    for B, n in late:
+        hold_threefry(prng, B, n)
+    phase("threefry-driven", t0, f"driven_shapes={driven} "
+          f"held_now={late} bitwise=True")
 
     main_row = rows[(4096, 14)]
+    tf_row = tf_rows[(4096, 8)]
     print(json.dumps({"kernels": [{
         "name": "gj_inverse",
         "route": "cuda",
@@ -778,6 +940,20 @@ def main():
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": [4096, 14, 14],
+    }, {
+        "name": "threefry_perturb_step",
+        "route": "cuda",
+        "source": "lcqpow_tpu_torch/csrc/threefry.cu",
+        # No pallas_call: the jax.random draw of the JAX package's loop.
+        "replaces": "lcqpow_tpu/solver.py:496",
+        "launches": tf_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in tf_rows.values()),
+        "ms": tf_row["ms"],
+        "plain_ms": tf_row["plain_ms"],
+        "bound_ms": tf_row["bound_ms"],
+        "bound_by": tf_row["bound_by"],
+        "library_ms": None,
+        "shape": [4096, 8],
     }]}))
     print(f"[total] seconds={time.perf_counter() - t_all:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {

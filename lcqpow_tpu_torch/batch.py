@@ -16,7 +16,7 @@ import torch
 
 from .data import LCQPData, pad_lcqp, stack_lcqps
 from .options import Options
-from .solver import Solution, solve
+from .solver import Solution, fleet_keys, solve
 from .types import PrintLevel
 
 
@@ -61,34 +61,33 @@ def chunked_call(fn, args, batch: int, chunk: int) -> Solution:
 def solve_batch(data: LCQPData, options: Options = Options(),
                 x0: Optional[torch.Tensor] = None,
                 y0: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
+                key=None,
                 chunk: Optional[int] = None) -> Solution:
     """Solve a batch of LCQPs (leading lane axis on every field of ``data``
     and on ``x0``/``y0`` if given) with :func:`solver.solve`, on the device
     of ``data``.  Iteration printing is off; per-lane statistics come back
-    instead.
+    instead.  The root ``key`` (default ``PRNGKey(options.seed)``) is split
+    over the fleet's lanes, as the JAX package splits it: a lane's key
+    depends only on the root key and the lane's index.
 
     ``chunk``: solve the fleet ``chunk`` lanes at a time
-    (:func:`chunked_call`).  The chunks share one step-perturbation
-    generator, so with ``perturb_step`` on a chunked solve draws
-    differently from a full-width one.
+    (:func:`chunked_call`).  The keys are split over the whole fleet before
+    it is cut into chunks, so every lane draws what it draws at full width.
     """
     options = options.replace(print_level=PrintLevel.NONE)
     batch = data.Q.shape[0]
-    if generator is None:
-        generator = torch.Generator(device=data.Q.device).manual_seed(
-            options.seed)
+    keys = fleet_keys(key, options.seed, batch, data.Q.device)
 
-    def fn(d, x, y):
-        return solve(d, options, x0=x, y0=y, generator=generator)
+    def fn(d, k, x, y):
+        return solve(d, options, x0=x, y0=y, key=k)
 
     if chunk is not None and 0 < chunk < batch:
-        return chunked_call(fn, (data, x0, y0), batch, chunk)
-    return fn(data, x0, y0)
+        return chunked_call(fn, (data, keys, x0, y0), batch, chunk)
+    return fn(data, keys, x0, y0)
 
 
 def solve_many(problems, options: Options = Options(),
-               generator: Optional[torch.Generator] = None) -> Solution:
+               key=None) -> Solution:
     """Stack a list of :class:`LCQPData` instances, each padded first to
     the largest dimensions with :func:`pad_lcqp`, and solve them as one
     batch."""
@@ -97,4 +96,4 @@ def solve_many(problems, options: Options = Options(),
     nC = max(p.nC for p in problems)
     nK = max(p.nComp for p in problems)
     padded = [pad_lcqp(p, nV, nC, nK) for p in problems]
-    return solve_batch(stack_lcqps(padded), options, generator=generator)
+    return solve_batch(stack_lcqps(padded), options, key=key)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import prng
 from .constants import INFTY
 from .data import LCQPData
 from .ops import df32
@@ -40,7 +41,8 @@ from .ops.chol import spd_inverse, spd_inverse_light
 from .ops.df32 import DF
 from .ops.linalg import absmax as _amax, eye, lane_where, mtv, mv
 from .options import Options
-from .solver import Solution, _as_batch, _classify, _on_device, solve
+from .solver import (Solution, _as_batch, _classify, _on_device, fleet_keys,
+                     root_key, solve)
 from .solvers.admm import _ruiz_equilibrate, compress_rows, compression_cap
 from .stats import Stats
 from .types import AlgorithmStatus, PrintLevel, ReturnValue
@@ -101,6 +103,22 @@ def _predictor_options(options: Options, m_rows: Optional[int] = None
 
 def _seg(a: DF, lo: int, hi: int) -> DF:
     return DF(a.hi[:, lo:hi], a.lo[:, lo:hi])
+
+
+def _violation(Ax: DF, l: DF, u: DF, has_l, has_u):
+    """Worst violation per lane of ``l <= Ax <= u`` over the rows that have
+    the bound (``has_l``/``has_u``), never below 0.
+
+    Each difference to a bound is taken in df32 and only then rounded to
+    f32.  The JAX package rounds Ax to f32 first (``mixed.py:337-341``),
+    which hides a violation below f32's spacing at |Ax| (2.4e-7 at |Ax| =
+    2) from the certificate's 1e-9 (1 + max|Ax|) test (ROADMAP C-13)."""
+    below, above = df32.sub(l, Ax), df32.sub(Ax, u)
+    zero = below.hi.new_zeros(())
+    viol = torch.maximum(
+        torch.where(has_l, below.hi + below.lo, zero).amax(-1),
+        torch.where(has_u, above.hi + above.lo, zero).amax(-1))
+    return viol.clamp_min(0.0)
 
 
 def correct_and_certify(data: LCQPData, options: Options,
@@ -199,11 +217,8 @@ def correct_and_certify(data: LCQPData, options: Options,
     def primal_violation(x: DF):
         """Worst violation of the stacked system (df32), and max|Ax|."""
         Axv = Ax_df(x)
-        axv = Axv.hi + Axv.lo
-        below = torch.where(has_l, (l_df.hi + l_df.lo) - axv, zero)
-        above = torch.where(has_u, axv - (u_df.hi + u_df.lo), zero)
-        viol = torch.maximum(below.amax(-1), above.amax(-1))
-        return viol.clamp_min(0.0), _amax(axv)
+        return (_violation(Axv, l_df, u_df, has_l, has_u),
+                _amax(Axv.hi + Axv.lo))
 
     def kkt_solve_pass(x: DF, y: DF, gk: DF, trust_duals, active):
         """One active-set KKT solve of the linearized QP per lane, via the
@@ -517,11 +532,12 @@ def _resolve_kkt_form(data: LCQPData, options: Options) -> Options:
 def solve_mixed(data: LCQPData, options: Options = Options(),
                 x0: Optional[torch.Tensor] = None,
                 y0: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
+                key=None,
                 n_corrector_iters: int = 25) -> Solution:
     """Mixed-precision solve of a batch of LCQPs (leading lane axis on every
     field of ``data`` and on ``x0``/``y0``), or of one unbatched instance,
-    on the device of ``data``.  Same contract as :func:`solver.solve`: an
+    on the device of ``data``.  Same contract as :func:`solver.solve`, the
+    step-perturbation ``key`` included (it goes to the f32 predictor): an
     unbatched instance gets a lane axis for the solve, and every field of
     the :class:`Solution` loses it again."""
     x0, y0 = _on_device(data, x0), _on_device(data, y0)
@@ -529,7 +545,7 @@ def solve_mixed(data: LCQPData, options: Options = Options(),
     if squeeze:
         x0 = None if x0 is None else x0.unsqueeze(0)
         y0 = None if y0 is None else y0.unsqueeze(0)
-        sol = solve_mixed(data, options, x0=x0, y0=y0, generator=generator,
+        sol = solve_mixed(data, options, x0=x0, y0=y0, key=key,
                           n_corrector_iters=n_corrector_iters)
         return sol.map(lambda a: a.squeeze(0))
     options = _resolve_kkt_form(data, options)
@@ -538,7 +554,7 @@ def solve_mixed(data: LCQPData, options: Options = Options(),
     pred = solve(data32, _predictor_options(options, m_rows),
                  x0=None if x0 is None else x0.to(_F32),
                  y0=None if y0 is None else y0.to(_F32),
-                 generator=generator)
+                 key=key)
 
     x, y_out, ret, algo, rho_opt, corr_steps, stage = correct_and_certify(
         data.map(lambda a: a.to(torch.float64)), options,
@@ -560,12 +576,6 @@ def solve_mixed(data: LCQPData, options: Options = Options(),
     return Solution(x=x, y=y_out, ret=ret, algo_status=algo, stats=stats)
 
 
-def _round_seed(seed: int, r: int) -> int:
-    """Perturbation seed of escalation round ``r`` (the JAX package folds
-    ``r + 1`` into its key)."""
-    return (seed + 0x9E3779B97F4A7C15 * (r + 1)) % (2 ** 63)
-
-
 #: Auto-chunk budget of the JAX package: lanes * m^3 per chunk, just above
 #: 32 * 505^3, so the circle shape (m = 503) chunks to 32 and the warm-up
 #: shape (m = 14) is never chunked.
@@ -584,41 +594,43 @@ def auto_chunk(batch: int, m: int) -> Optional[int]:
 def solve_batch_mixed(data: LCQPData, options: Options = Options(),
                       x0: Optional[torch.Tensor] = None,
                       y0: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None,
+                      key=None,
                       n_corrector_iters: int = 25,
                       escalate: int = 1,
                       chunk: Optional[int] = None) -> Solution:
     """Batched mixed-precision solve (leading lane axis on every field of
     ``data`` and on ``x0``/``y0``), with up to ``escalate`` host-side retry
     rounds of the uncertified lanes (:func:`_escalate_failed`).  Runs on
-    the device of ``data``.
+    the device of ``data``.  The root ``key`` (default
+    ``PRNGKey(options.seed)``) is split over the fleet's lanes, as the JAX
+    package splits it: a lane's key depends only on the root key and the
+    lane's index.
 
     ``chunk``: solve the fleet ``chunk`` lanes at a time
     (:func:`batch.chunked_call`); ``None`` picks :func:`auto_chunk`'s
-    width, ``0`` forces full width.  The chunks share one perturbation
-    generator, so with ``perturb_step`` on a chunked solve draws
-    differently from a full-width one."""
+    width, ``0`` forces full width.  The keys are split over the whole
+    fleet before it is cut into chunks, so a chunked solve draws what a
+    full-width one draws."""
     from .batch import chunked_call
 
     options = options.replace(print_level=PrintLevel.NONE)
     options = _resolve_kkt_form(data, options)
     batch = data.Q.shape[0]
-    if generator is None:
-        generator = torch.Generator(device=data.Q.device).manual_seed(
-            options.seed)
+    key = root_key(key, options.seed, data.Q.device)
+    keys = fleet_keys(key, options.seed, batch, data.Q.device)
     if chunk is None:
         chunk = auto_chunk(batch, data.nC + 2 * data.nComp + data.nV)
 
-    def fn(d, x, y):
-        return solve_mixed(d, options, x0=x, y0=y, generator=generator,
+    def fn(d, k, x, y):
+        return solve_mixed(d, options, x0=x, y0=y, key=k,
                            n_corrector_iters=n_corrector_iters)
 
     if chunk is not None and 0 < chunk <= batch:
-        sol = chunked_call(fn, (data, x0, y0), batch, chunk)
+        sol = chunked_call(fn, (data, keys, x0, y0), batch, chunk)
     else:
-        sol = fn(data, x0, y0)
+        sol = fn(data, keys, x0, y0)
     if escalate > 0:
-        sol = _escalate_failed(sol, data, options, x0, y0,
+        sol = _escalate_failed(sol, data, options, x0, y0, key,
                                n_corrector_iters, escalate, chunk=chunk)
     return sol
 
@@ -637,18 +649,26 @@ def _merge_retry(sol: Solution, retry: Solution, round_idx: int) -> Solution:
         merged, stats=dataclasses.replace(merged.stats, certified_stage=st))
 
 
+#: Widest chunk of a chunked fleet's retry (the JAX package's).
+RETRY_CHUNK = 8
+
+
 def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
-                     x0, y0, n_corrector_iters: int,
+                     x0, y0, key, n_corrector_iters: int,
                      rounds: int, chunk: Optional[int] = None) -> Solution:
     """Re-solve the uncertified lanes with escalating strategies and merge
-    the certified retries back: round 0 a doubled corrector budget and a
-    fresh perturbation seed; round 1 a restart of the homotopy from the
+    the certified retries back: round 0 a doubled corrector budget and
+    fresh perturbation keys; round 1 a restart of the homotopy from the
     failed iterate; round >= 2 the original start with adaptive rho.
+    Round ``r`` draws from ``fold_in(key, r + 1)`` of the root ``key``,
+    split over the retried lanes, as the JAX package does.
 
-    A chunked fleet retries at chunk width ``min(chunk, 8)``, as the JAX
-    package does.  The JAX package also pads each retry to a power-of-two
+    A chunked fleet retries at chunk width ``min(chunk, RETRY_CHUNK)``, as
+    the JAX package does.  The JAX package also pads each retry to a power-of-two
     bucket of repeated lanes so that few shapes compile; nothing compiles
-    here, so the retry holds the failed lanes only.
+    here, so the retry holds the failed lanes only.  The padding does not
+    change a retried lane's key (a split's first keys do not depend on how
+    many it makes), so both retries draw alike.
 
     Several processes (``torch.distributed``): this same branch runs on
     each rank's own lanes.  The JAX package re-solves the whole fleet in
@@ -658,7 +678,6 @@ def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
     process does.  That costs a retry of the failed lanes only, needs no
     collective (ranks may take different numbers of rounds), and gives each
     rank the result of a one-process solve of its lanes."""
-    dev = data.Q.device
     bad = torch.nonzero(sol.ret != _SUCCESS).flatten()
     for r in range(rounds):
         if bad.numel() == 0:
@@ -675,12 +694,11 @@ def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
             sx0 = None if x0 is None else take(x0)
             ropts = options.replace(admm=dataclasses.replace(
                 options.admm, adaptive_rho=True))
-        gen = torch.Generator(device=dev).manual_seed(
-            _round_seed(options.seed, r))
-        retry = solve_batch_mixed(sub, ropts, x0=sx0, y0=sy0, generator=gen,
+        retry = solve_batch_mixed(sub, ropts, x0=sx0, y0=sy0,
+                                  key=prng.fold_in(key, r + 1),
                                   n_corrector_iters=rbudget, escalate=0,
                                   chunk=None if chunk is None
-                                  else min(chunk, 8))
+                                  else min(chunk, RETRY_CHUNK))
         full = sol.map(lambda a, b: a.index_copy(0, bad, b.to(a.dtype)),
                        retry)
         sol = _merge_retry(sol, full, r)

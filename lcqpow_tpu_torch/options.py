@@ -181,7 +181,8 @@ class Options:
     # almost-converged homotopy.  Default False = reference semantics.
     tolerate_inner_maxiter: bool = False
 
-    # Seed of the step perturbation's torch.Generator.  The reference calls
+    # Seed of the step perturbation's root key (prng.prng_key, the JAX
+    # package's PRNGKey(seed)).  The reference calls
     # srand(time(NULL)) per solve (src/LCQProblem.cpp:1016) and is therefore
     # nondeterministic; an explicit seed makes solves repeatable.
     seed: int = 0

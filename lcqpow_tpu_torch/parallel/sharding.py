@@ -5,11 +5,12 @@ The JAX package shards the lane axis of a batch over a ``jax.sharding``
 mesh, and one SPMD program solves every shard on its chip at once.  Here a
 "mesh" is a list of ``torch.device``: :func:`shard_batch` splits the lane
 axis into one contiguous slice per device, and :func:`solve_batch_sharded`
-solves every slice at the same time, one host thread per slice.  Each
-thread owns a CUDA stream on its device and its own step-perturbation
-generator, and runs :func:`lcqpow_tpu_torch.solve_batch` on its lanes; the
-caller gathers the lanes back in order.  Nothing crosses devices during the
-solve.
+solves every slice at the same time, one host thread per slice.  The root
+key is split over the whole fleet first, as the JAX package splits it over
+its global batch, and each slice takes its lanes' keys.  Each thread owns a
+CUDA stream on its device and runs :func:`lcqpow_tpu_torch.solve` on its
+lanes; the caller gathers the lanes back in order.  Nothing crosses devices
+during the solve.
 
 The solve is host-bound (it launches one small op at a time), and the
 threads share one interpreter: they take turns on a baton
@@ -36,11 +37,11 @@ import torch
 import torch.distributed as dist
 
 from .._sync import Baton
-from ..batch import solve_batch
 from ..data import LCQPData
 from ..options import Options
-from ..solver import Solution
+from ..solver import Solution, fleet_keys, solve
 from ..types import ReturnValue
+from .distributed import HostLocalBatch
 
 #: Buckets of the stage histogram of :func:`fleet_summary`; stages from
 #: ``_N_STAGES - 1`` up share the last one, so the counts total the fleet.
@@ -90,50 +91,62 @@ def shard_batch(tree, mesh: Sequence) -> list:
 
 
 def _solve_slice(dev: torch.device, stream, baton: Baton, data: LCQPData,
-                 options: Options, x0, y0) -> Solution:
-    """:func:`solve_batch` of one slice holding the workers' ``baton``, on
-    its card's ``stream`` (``None`` off the card)."""
+                 options: Options, keys, x0, y0) -> Solution:
+    """:func:`solve` of one slice with its lanes' ``keys``, holding the
+    workers' ``baton``, on its card's ``stream`` (``None`` off the
+    card)."""
     if stream is None:
         with baton.held():
-            return solve_batch(data, options, x0=x0, y0=y0)
+            return solve(data, options, x0=x0, y0=y0, key=keys)
     with torch.cuda.device(dev), torch.cuda.stream(stream), baton.held():
-        return solve_batch(data, options, x0=x0, y0=y0)
+        return solve(data, options, x0=x0, y0=y0, key=keys)
 
 
 def solve_batch_sharded(data: LCQPData, options: Options = Options(),
                         mesh: Optional[Sequence] = None,
                         x0: Optional[torch.Tensor] = None,
-                        y0: Optional[torch.Tensor] = None) -> Solution:
+                        y0: Optional[torch.Tensor] = None,
+                        key=None) -> Solution:
     """Solve the fleet ``data`` (or the rank's lanes of a
     :class:`~.distributed.HostLocalBatch`) over ``mesh`` (default
     :func:`make_mesh`), and gather the lanes, in order, on the device of
     ``data``.
 
-    Every slice (:func:`shard_batch`) is solved at the same time by a
-    worker thread of its own: the thread binds the slice's device, runs on
-    a CUDA stream of its own there, holds the workers' baton except while
-    it waits for its device (see the module docstring), and calls
-    :func:`solve_batch`, which draws the step perturbation from the
-    slice's own generator seeded with ``options.seed``.  The same kernels
-    run in the same order on each slice's device, so each slice is bit for
-    bit :func:`solve_batch` of those lanes on its device, whatever the
-    threads' interleaving; on the card a slice is solved at its own width
-    and may round differently from the full width (cuBLAS picks its
-    kernels by batch size).  On a mesh of
-    one device (or with one non-empty slice) it is :func:`solve_batch` bit
-    for bit, with no thread.  A worker's exception is raised again here,
-    after every worker has ended.  A mesh may name one card more than once:
-    its slices then run on separate streams of that card."""
-    data = getattr(data, "data", data)
+    The root ``key`` (default ``PRNGKey(options.seed)``) is split over the
+    whole fleet, as ``solve_batch`` splits it (for a
+    ``HostLocalBatch``: over all ranks' lanes, the rank taking those from
+    its offset), so every lane draws what it draws in a one-device solve of
+    the fleet.  Every slice (:func:`shard_batch`) is solved at the same
+    time by a worker thread of its own: the thread binds the slice's
+    device, runs on a CUDA stream of its own there, holds the workers'
+    baton except while it waits for its device (see the module docstring),
+    and calls :func:`solve` with its lanes' keys.  The same kernels run in
+    the same order on each slice's device, so each slice is bit for bit
+    :func:`solve` of those lanes and keys on its device, whatever the
+    threads' interleaving; on the CPU that is the full-width solve's lanes
+    bit for bit, while on the card a slice is solved at its own width and
+    may round differently from the full width (cuBLAS picks its kernels by
+    batch size).  On a mesh of one device (or with one non-empty slice) it
+    is one :func:`solve` call, with no thread.  A worker's
+    exception is raised again here, after every worker has ended.  A mesh
+    may name one card more than once: its slices then run on separate
+    streams of that card."""
+    offset, total = 0, None
+    if isinstance(data, HostLocalBatch):
+        offset, total, data = data.offset, data.total, data.data
     if mesh is None:
         mesh = make_mesh()
     home = data.Q.device
-    slices = [(dev, d, x, y) for dev, d, x, y in zip(
-        mesh, shard_batch(data, mesh), shard_batch(x0, mesh),
-        shard_batch(y0, mesh)) if d.Q.shape[0] > 0]
+    local = data.Q.shape[0]
+    keys = fleet_keys(key, options.seed, local if total is None else total,
+                      home, offset, local)
+    slices = [(dev, d, k, x, y) for dev, d, k, x, y in zip(
+        mesh, shard_batch(data, mesh), shard_batch(keys, mesh),
+        shard_batch(x0, mesh), shard_batch(y0, mesh)) if d.Q.shape[0] > 0]
     if len(slices) == 1:
-        dev, d, x, y = slices[0]
-        return solve_batch(d, options, x0=x, y0=y).map(lambda a: a.to(home))
+        dev, d, k, x, y = slices[0]
+        return solve(d, options, x0=x, y0=y, key=k).map(
+            lambda a: a.to(home))
     # Each worker's stream starts after the caller's copies of its slice.
     streams = []
     for dev, *_ in slices:
@@ -146,8 +159,8 @@ def solve_batch_sharded(data: LCQPData, options: Options = Options(),
     with ThreadPoolExecutor(len(slices),
                             thread_name_prefix="solve_batch_sharded") as pool:
         futures = [pool.submit(_solve_slice, dev, stream, baton, d, options,
-                               x, y)
-                   for (dev, d, x, y), stream in zip(slices, streams)]
+                               k, x, y)
+                   for (dev, d, k, x, y), stream in zip(slices, streams)]
     parts = [f.result() for f in futures]
     # The gather runs on the caller's streams, after each worker's; a
     # worker's tensors are marked as used there, so their memory is not

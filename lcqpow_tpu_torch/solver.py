@@ -11,10 +11,10 @@ stale-``statk`` stationarity test, the ``g_tilde`` quirk, exact merit line
 search, dual transform and S/M/C/W typing on convergence); see that module
 for the citations.
 
-Step perturbation draws ``{-1, 0, 1} * eps`` per coordinate from an explicit
-``torch.Generator`` (``Options.seed``).  It cannot reproduce ``jax.random``'s
-bits, so iterate-level comparisons with the JAX package use
-``perturb_step=False``.
+Step perturbation draws ``{-1, 0, 1} * eps`` per coordinate from a
+per-lane Threefry key carried in the loop state, split once a pass as the
+JAX package splits its key (:mod:`.prng`, one kernel launch a pass on the
+card): from the same keys the port draws the JAX package's bits.
 
 The inner QP engine is chosen by ``Options.inner_solver`` through
 ``_INNER_ENGINES``: the polish-first ADMM (:mod:`.solvers.admm`) or the
@@ -36,8 +36,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from . import prng
 from ._sync import any_
 from .data import LCQPData
 from .ops.linalg import absmax, eye, lane_where, mtv, mv
@@ -174,16 +176,57 @@ def _as_batch(data: LCQPData):
     return data, False
 
 
+def lane_keys(key, batch: int, seed: int, device) -> torch.Tensor:
+    """The (batch, 2) int64 Threefry keys of a solve's lanes on ``device``:
+    ``key`` of shape (batch, 2) as given, one key of shape (2,) for every
+    lane, and ``prng_key(seed)`` for every lane when ``key`` is None (what
+    ``vmap`` over the JAX package's ``solve`` gives without a key).  A key
+    may be a tensor or an array-like of uint32 words (a JAX key array)."""
+    if key is None:
+        key = prng.prng_key(seed, device)
+    elif not isinstance(key, torch.Tensor):
+        key = torch.from_numpy(np.asarray(key).astype(np.int64))
+    key = key.to(device=device, dtype=torch.int64)
+    if key.shape == (2,):
+        key = key.expand(batch, 2)
+    if key.shape != (batch, 2):
+        raise ValueError(f"key: needs shape (2,) or ({batch}, 2), got "
+                         f"{tuple(key.shape)}")
+    return key.contiguous()
+
+
+def root_key(key, seed: int, device) -> torch.Tensor:
+    """One (2,) key on ``device``: ``key`` (an array-like of two uint32
+    words), or ``prng_key(seed)`` when it is None."""
+    return lane_keys(key, 1, seed, device)[0]
+
+
+def fleet_keys(key, seed: int, total: int, device, offset: int = 0,
+               count: Optional[int] = None) -> torch.Tensor:
+    """The (count, 2) keys of lanes ``offset`` to ``offset + count`` (by
+    default every lane) of a fleet of ``total`` lanes: the root ``key``
+    (:func:`root_key`) split over the whole fleet, as the JAX package
+    splits its key over a batch (``batch.py:104-106``,
+    ``mixed.py:970-972``) and over a sharded one
+    (``parallel/sharding.py:57-69``).  A lane's key so depends only on the
+    root key and the lane's index in the fleet, whatever chunk, slice or
+    rank solves it."""
+    keys = prng.split(root_key(key, seed, device), total)
+    return keys if count is None else keys[offset:offset + count]
+
+
 def solve(data: LCQPData, options: Options = Options(),
           x0: Optional[torch.Tensor] = None,
           y0: Optional[torch.Tensor] = None,
-          generator: Optional[torch.Generator] = None) -> Solution:
+          key=None) -> Solution:
     """Solve a batch of LCQPs (leading lane axis on every field of
     ``data`` and on ``x0``/``y0``), or one unbatched instance.  Runs on the
-    device of ``data``.  ``generator`` feeds the step perturbation (default:
-    a fresh one seeded with ``options.seed`` on that device).  ``x0`` and
-    ``y0`` may be tensors or array-likes.  Only an unbatched solve prints
-    its iterations (``options.print_level``)."""
+    device of ``data``.  ``key`` feeds the step perturbation: per-lane keys
+    (B, 2) for a batch, or one key (2,) (every lane of a batch starts from
+    it); by default ``prng.prng_key(options.seed)``, as the JAX package's
+    ``solve`` takes ``PRNGKey(options.seed)`` (see :func:`lane_keys`).
+    ``x0`` and ``y0`` may be tensors or array-likes.  Only an unbatched
+    solve prints its iterations (``options.print_level``)."""
     x0, y0 = _on_device(data, x0), _on_device(data, y0)
     data, squeeze = _as_batch(data)
     print_level = options.print_level if squeeze else PrintLevel.NONE
@@ -199,8 +242,7 @@ def solve(data: LCQPData, options: Options = Options(),
     cfg = options.admm
     nhist = max(int(options.n_dynamic_penalty), 1)
     i32 = torch.int32
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(options.seed)
+    keys0 = lane_keys(key, B, options.seed, dev)
 
     ws = build_workspace(data, options)
 
@@ -280,6 +322,7 @@ def solve(data: LCQPData, options: Options = Options(),
                         int(ReturnValue.SUCCESSFUL_RETURN)).to(i32),
         algo=full(int(AlgorithmStatus.PROBLEM_NOT_SOLVED)),
         x_best=xk0, y_best=yk_full0, score_best=full(inf_, dtype),
+        key=keys0,
     )
     lanes = torch.arange(B, device=dev)
 
@@ -416,8 +459,11 @@ def solve(data: LCQPData, options: Options = Options(),
         pk_c = xnew - xk
         qp_fail_c = qp_failed(res.status)
         xk_c = xk
+        keys = c["key"]
         if options.perturb_step:
-            r = torch.randint(-1, 2, (B, n), generator=generator, device=dev)
+            # perturbStep (:554-555): each lane still going splits its key
+            # and draws randint(sub, (n,), -1, 2); the others keep theirs.
+            keys, r = prng.perturb_step(keys, go, n)
             xk_c = xk + r.to(dtype) * eps_dt
         qk_val = (pk_c * Qk_mv(rho, pk_c)).sum(-1)
         lk_val = (pk_c * (Qk_mv(rho, xk_c) + g_tilde)).sum(-1)
@@ -476,7 +522,7 @@ def solve(data: LCQPData, options: Options = Options(),
             sub_iters=sub_iters, qp_flag=qp_flag, qp_iter_k=qp_iter_k,
             done=done, qp_streak=qp_streak, streak_stat0=streak_stat0,
             streak_phi0=streak_phi0, ret=ret, algo=algo, x_best=x_best,
-            y_best=y_best, score_best=score_best)
+            y_best=y_best, score_best=score_best, key=keys)
         c = {k: lane_where(run, new[k], c[k]) for k in c}
 
     xk, yk = c["xk"], c["yk"]

@@ -3,9 +3,10 @@ disposition tables, ``lcqpow``), the unbatched mixed-precision solve and
 ``Stats.trim``, held to the JAX package on the same NumPy-built inputs on
 the CPU.  The object API is in ``test_torch_compat.py``.
 
-Tolerances, and why (every iterate comparison runs with
-``perturb_step=False``: the two packages draw their step perturbations from
-different generators):
+Tolerances, and why (the iterate comparisons run with
+``perturb_step=False``, and ``test_lcqpow_perturbed_matches_jax`` with it
+on: an unbatched solve draws from ``PRNGKey(seed)`` in both packages, the
+same bits, so the same tolerances hold):
 
 * the f64 homotopy (``lcqpow``): the same iteration in both packages, only
   the summation order of small matmuls differs; x and y to 1e-9, integer
@@ -148,6 +149,29 @@ def test_lcqpow_matches_jax(mixed):
     assert {k: ps[k] for k in INT_STATS} == {k: js[k] for k in INT_STATS}
     assert ps["elapsed_time_compile"] == 0.0
     assert ps["elapsed_time_solve"] == ps["elapsed_time"] > 0.0
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["f64", "mixed"])
+def test_lcqpow_perturbed_matches_jax(mixed):
+    # Integer statistics are equal, except the mixed pipeline's on the
+    # warm-up: its f32 predictor runs along the symmetric saddle x1 = x2,
+    # where the packages' f32 inner solves differ by an ulp before the
+    # first draw (x 0.99999994 against 1.0) and rounding, not the draws,
+    # picks the pass a penalty update fires (iters_outer 12 against 13 at
+    # seed 3, the same iters_total).
+    params = {"printLevel": 0, "seed": 3}
+    for name, problem in (("warm_up", WARM_UP),
+                          ("random_4", _random_arrays(4))):
+        jx, jy, js = j_lcqpow(**problem, params=params, mixed=mixed)
+        px, py, ps = p_lcqpow(**problem, params=params, mixed=mixed,
+                              device="cpu")
+        assert ps["exit_flag"] == js["exit_flag"] == 0, name
+        assert ps["solution_type"] == js["solution_type"], name
+        np.testing.assert_allclose(px, jx, rtol=0, atol=1e-9, err_msg=name)
+        np.testing.assert_allclose(py, jy, rtol=0, atol=1e-9, err_msg=name)
+        if not (mixed and name == "warm_up"):
+            assert {k: ps[k] for k in INT_STATS} \
+                == {k: js[k] for k in INT_STATS}, name
 
 
 def _random_arrays(seed):

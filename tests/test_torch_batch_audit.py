@@ -10,6 +10,9 @@ Tolerances, and why:
 * Chunked against full width, ``perturb_step=False``: each lane's
   arithmetic does not depend on the lanes beside it (per-matrix batched
   products, per-lane masks), so ``ret`` is exact and x agrees to 1e-12.
+* Chunked against full width with the perturbation on: the root key is
+  split over the whole fleet before chunking, so every lane draws what it
+  draws at full width, and on the CPU the solves are equal bit for bit.
 """
 
 import dataclasses
@@ -128,6 +131,30 @@ def test_chunked_escalation_equals_full_width():
     _same(chunked, full)
     assert np.array_equal(chunked.stats.certified_stage.numpy(),
                           full.stats.certified_stage.numpy())
+
+
+@pytest.mark.parametrize("path", ["solve_batch", "solve_batch_mixed",
+                                  "escalation"])
+def test_perturbed_chunked_equals_full_width_bitwise(path):
+    opts = OPTS.replace(perturb_step=True)
+    data = warmup_fleet(10, device="cpu")
+    if path == "solve_batch":
+        full = lt.solve_batch(data, opts)
+        chunked = lt.solve_batch(data, opts, chunk=4)
+    else:
+        # A zero corrector budget sends every lane through escalation.
+        kw = dict(n_corrector_iters=0 if path == "escalation" else 6)
+        full = lt.solve_batch_mixed(data, opts, chunk=0, **kw)
+        chunked = lt.solve_batch_mixed(data, opts, chunk=4, **kw)
+        assert torch.equal(chunked.stats.certified_stage,
+                           full.stats.certified_stage)
+        assert (full.stats.certified_stage == 3).all() \
+            == (path == "escalation")
+    assert (full.ret == 0).all()
+    for a, b in ((chunked.x, full.x), (chunked.y, full.y),
+                 (chunked.ret, full.ret),
+                 (chunked.stats.iter_total, full.stats.iter_total)):
+        assert torch.equal(a, b)
 
 
 def test_auto_chunk_rule():

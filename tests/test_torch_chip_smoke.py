@@ -1,5 +1,7 @@
-"""``chip_smoke.py``'s reading of nvcc's ``-Xptxas -v`` report, on an
-excerpt of the report for ``lcqpow_tpu_torch/csrc/gj_inverse.cu``."""
+"""``chip_smoke.py``'s helpers on the CPU: its reading of nvcc's
+``-Xptxas -v`` report (on excerpts of the reports for
+``lcqpow_tpu_torch/csrc/gj_inverse.cu`` and ``threefry.cu``), its bounds,
+its pins and shapes, and its checks of a path's outcome."""
 
 import pytest
 
@@ -115,7 +117,7 @@ def test_api_shapes_are_the_one_call_paths_orders():
         seen[tuple(S.shape[:2])] += 1
         return orig(S)
 
-    params = {"printLevel": 0, "perturbStep": False}
+    params = {"printLevel": 0}
     d = random_lcqp(np.random.default_rng(0), nV=8, nC=2, nComp=2,
                     as_numpy=True)
     chol.gj_inverse = record
@@ -155,9 +157,99 @@ def test_check_printed_table_on_cpu(capsys):
         chip_smoke.check_printed_table(text.replace("station ", "st "), n)
 
 
-def test_launches_by_m_reads_and_resets():
+def test_launches_by_m_reads_and_resets(monkeypatch):
     from types import SimpleNamespace
 
+    from lcqpow_tpu_torch import prng
+
+    monkeypatch.setattr(prng, "launch_count", 4)
     gj = SimpleNamespace(launch_count=5, launch_counts={14: 3, 8: 2})
-    assert chip_smoke.launches_by_m(gj) == {8: 2, 14: 3}
+    assert chip_smoke.launches_by_m(gj) == {8: 2, 14: 3, "threefry": 4}
     assert gj.launch_count == 0 and gj.launch_counts == {}
+    assert prng.launch_count == 0
+
+
+THREEFRY_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd819perturb_step_kernelEPKxPKbPxS4_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd819perturb_step_kernelEPKxPKbPxS4_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
+"""
+
+
+def test_threefry_ptxas_and_bound():
+    assert chip_smoke.threefry_ptxas(THREEFRY_LOG) == (24, 0, 0)
+    with pytest.raises(AssertionError):
+        chip_smoke.threefry_ptxas("ptxas info    : 0 bytes gmem")
+    # (4096, 8), every lane active: 4096 * (33 + 64) bytes against
+    # 4096 * 20 hashes of 79 operations; the hashes take longer.
+    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 4096)
+    ops_ms = 4096 * 20 * 79 / 33.5e12 * 1e3
+    assert by == "operations" and ms == pytest.approx(ops_ms, rel=1e-12)
+    # No lane active: only the bytes are left.
+    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 0)
+    assert by == "bytes"
+    assert ms == pytest.approx(4096 * 97 / 3.35e12 * 1e3, rel=1e-12)
+
+
+def _retry_widths(lanes, stages, rounds, chunk):
+    """The lane widths of a path's escalation retries, from its pinned
+    stages (0: uncertified, 1-2: certified by the first solve, 3 + r: by
+    round r): round r retries the lanes still uncertified, in chunks of
+    ``min(chunk, RETRY_CHUNK)`` when the fleet was chunked and that many
+    lanes are left, else all at once."""
+    from lcqpow_tpu_torch.mixed import RETRY_CHUNK
+
+    left = lanes - stages.get(1, 0) - stages.get(2, 0)
+    widths = []
+    for r in range(rounds):
+        if left == 0:
+            break
+        c = None if chunk is None else min(chunk, RETRY_CHUNK)
+        widths.append(c if c is not None and c <= left else left)
+        left -= stages.get(3 + r, 0)
+    return widths
+
+
+def test_threefry_shapes_cover_every_driven_shape():
+    # Derived from the paths: the fleets' widths, the circle's chunks, and
+    # each escalation round's retry width from the pinned stages; n from
+    # the problems themselves.
+    from lcqpow_tpu_torch.problems import circle_fleet, warmup_fleet
+
+    cs = chip_smoke
+    assert warmup_fleet(1, device="cpu").nV == cs.WARMUP_NV
+    assert circle_fleet(1, device="cpu")[0].nV == cs.CIRCLE_NV
+    wu, circ = cs.WARMUP_NV, cs.CIRCLE_NV
+    driven = {(cs.B_MAIN, wu), (cs.PAS_MIXED_B, wu), (cs.PAS_F64_B, wu),
+              (cs.CIRCLE_CHUNK, circ)}
+    # main: escalate=1, not chunked at m = 14; the circle: escalate=3.
+    driven |= {(b, wu) for b in _retry_widths(
+        cs.B_MAIN, cs.MAIN_EXPECTED["stages"], 1, None)}
+    driven |= {(b, circ) for b in _retry_widths(
+        cs.CIRCLE_B, cs.PATHS["circle-N100"]["pinned"]["stages"], 3,
+        cs.CIRCLE_CHUNK)}
+    # The api phase: the circle through LCQProblem, the one-call path's
+    # warm-up (n = 2) and random_lcqp(8, 2, 2), one instance each.
+    driven |= {(1, circ), (1, 2), (1, wu)}
+    assert driven <= set(cs.THREEFRY_SHAPES)
+    assert (cs.B_MAIN - 1, wu) in cs.THREEFRY_SHAPES      # a ragged batch
+    assert len(set(cs.THREEFRY_SHAPES)) == len(cs.THREEFRY_SHAPES)
+
+
+def test_retry_widths():
+    # The circle's pinned split: 27 lanes left after the first solve, 11
+    # after round 0, 5 after round 1 (fewer than a chunk).
+    assert _retry_widths(128, {0: 4, 2: 101, 3: 16, 4: 6, 5: 1}, 3,
+                         32) == [8, 8, 5]
+    assert _retry_widths(4096, {2: 4095, 3: 1}, 1, None) == [1]
+    assert _retry_widths(64, {2: 64}, 3, 32) == []
+
+
+@pytest.mark.parametrize("B,n", [(5, 8), (1, 202), (3, 0)])
+def test_hold_threefry_on_cpu(B, n):
+    from lcqpow_tpu_torch import prng
+
+    keys, active, err = chip_smoke.hold_threefry(prng, B, n, device="cpu")
+    assert tuple(keys.shape) == (B, 2) and bool(active[0]) and err == 0.0

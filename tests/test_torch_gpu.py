@@ -1,5 +1,6 @@
-"""Tests of the port that need a CUDA card: its kernels against their plain
-PyTorch versions.  They skip without a card.
+"""Tests of the port that need a CUDA card: its kernels (the Gauss-Jordan
+inverse, the Threefry draw) against their plain PyTorch versions.  They
+skip without a card.
 
 This file imports no JAX, so it also runs on a machine without it::
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from lcqpow_tpu_torch import prng
 from lcqpow_tpu_torch.ops import gj_inverse as pgj
 
 
@@ -190,7 +192,7 @@ def test_sweep_graph_from_threads_equals_eager(B, n, dtype):
 @pytest.mark.gpu
 def test_sharded_solve_on_two_streams_of_one_card():
     # A mesh naming the card twice: two worker threads on two streams, each
-    # slice bit for bit solve_batch of its lanes.
+    # slice bit for bit the solve of its lanes with the fleet's keys.
     _card()
     import lcqpow_tpu_torch as lt
     from lcqpow_tpu_torch.parallel import (make_mesh, shard_batch,
@@ -201,10 +203,71 @@ def test_sharded_solve_on_two_streams_of_one_card():
     fleet = warmup_fleet(64)
     mesh = make_mesh(["cuda:0", "cuda:0"])
     got = solve_batch_sharded(fleet, opts, mesh=mesh)
-    parts = [lt.solve_batch(d, opts) for d in shard_batch(fleet, mesh)]
+    keys = prng.split(prng.prng_key(opts.seed, "cuda"), 64)
+    parts = [lt.solve(d, opts, key=k) for d, k in
+             zip(shard_batch(fleet, mesh), shard_batch(keys, mesh))]
     for name in ("x", "y", "ret", "algo_status"):
         want = torch.cat([getattr(p, name) for p in parts])
         a = getattr(got, name)
         assert torch.equal(a, want)
         if a.is_floating_point():
             assert torch.equal(a.view(torch.uint8), want.view(torch.uint8))
+
+
+def _keys_and_mask(B, seed):
+    """Per-lane keys of a fleet (a split, as the solver's) and a mask with
+    about a third of the lanes off."""
+    keys = prng.split(prng.prng_key(seed), B)
+    active = torch.from_numpy(np.random.default_rng(seed).random(B) < 0.66)
+    return keys.cuda(), active.cuda()
+
+
+# The main path's, pas-mixed-1024's and pas-warmup-256's shapes (n = 8),
+# the circle's chunk, retries and one instance (n = 202), a ragged batch,
+# one lane, every n up to 20 at a prime batch, no element at all, and a
+# lane count that is not a multiple of the block.  Integer operations
+# only: bitwise.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(4096, 8), (1024, 8), (256, 8), (4095, 8),
+                                 (32, 202), (8, 202), (5, 202), (1, 202),
+                                 (1, 2), (1, 1), (5, 0), (300, 8)]
+                         + [(389, n) for n in range(1, 21)])
+def test_threefry_kernel_matches_plain_on_card(B, n):
+    _card()
+    keys, active = _keys_and_mask(B, seed=B + n)
+    before = prng.launch_count
+    k, r = prng.perturb_step(keys, active, n)
+    kp, rp = prng.perturb_step_plain(keys, active, n)
+    torch.cuda.synchronize()
+    assert prng.launch_count == before + 1
+    assert torch.equal(k, kp) and torch.equal(r, rp)
+    assert k.dtype == r.dtype == torch.int64 and tuple(r.shape) == (B, n)
+
+
+@pytest.mark.gpu
+def test_threefry_kernel_chains_like_plain_on_card():
+    # Twenty passes, each from the keys the last one left, as the solver
+    # carries them.
+    _card()
+    keys, active = _keys_and_mask(64, seed=3)
+    kp = keys.clone()
+    for _ in range(20):
+        keys, r = prng.perturb_step(keys, active, 8)
+        kp, rp = prng.perturb_step_plain(kp, active, 8)
+        assert torch.equal(keys, kp) and torch.equal(r, rp)
+
+
+@pytest.mark.gpu
+def test_threefry_kernel_rejects_what_it_does_not_take():
+    _card()
+    keys, active = _keys_and_mask(8, seed=1)
+    with pytest.raises(ValueError):
+        prng.perturb_step(keys.to(torch.int32), active, 4)
+    with pytest.raises(ValueError):
+        prng.perturb_step(keys, active.to(torch.int32), 4)
+    with pytest.raises(ValueError):
+        prng.perturb_step(keys.t().contiguous().t(), active, 4)
+    with pytest.raises(ValueError):
+        prng.perturb_step(keys, active[:4], 4)
+    with pytest.raises(ValueError):
+        prng.perturb_step(keys, active.cpu(), 4)

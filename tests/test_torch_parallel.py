@@ -10,8 +10,9 @@ per-rank escalation), and the group's teardown at exit and by
 
 Tolerances: the summaries are equal dicts (the same lanes in, the same
 counts out; the means in float32 as the JAX package takes them); sharded
-and per-rank solves are bit for bit ``solve_batch``'s of the same lanes,
-and of the whole fleet with ``perturb_step=False``.
+and per-rank solves split the root key over the whole fleet, so they are
+bit for bit the solve of the same lanes with the fleet's keys, and the
+whole fleet's ``solve_batch``, with the perturbation on or off.
 """
 
 import json
@@ -31,6 +32,7 @@ import lcqpow_tpu as jl
 from lcqpow_tpu.parallel import fleet_summary as j_fleet_summary
 
 import lcqpow_tpu_torch as pl_
+from lcqpow_tpu_torch import prng
 from lcqpow_tpu_torch.parallel import (fleet_summary, make_mesh, shard_batch,
                                        solve_batch_sharded)
 from lcqpow_tpu_torch.problems import warmup_fleet
@@ -93,9 +95,10 @@ def test_shard_batch_splits_lanes_in_order():
 
 
 # One device: solve_batch itself, no thread.  Two and four CPU "devices":
-# the slices in concurrent worker threads, each bit for bit solve_batch of
-# its lanes (with its own draws when the perturbation is on), and with it
-# off the whole fleet's solve too (the CPU sums a slice as the full width).
+# the slices in concurrent worker threads, each bit for bit the solve of
+# its lanes with their keys of the fleet's split, and the whole fleet's
+# solve too (the keys are the full width's, and the CPU sums a slice as the
+# full width).
 @pytest.mark.parametrize("devices,perturb,lanes",
                          [(1, True, 16), (2, False, 16), (4, True, 8)],
                          ids=["one_device", "two_devices",
@@ -105,12 +108,14 @@ def test_solve_batch_sharded_equals_solve_batch(devices, perturb, lanes):
     data = warmup_fleet(lanes, device="cpu")
     x0 = 0.1 * torch.ones(lanes, 8, dtype=torch.float64)
     mesh = make_mesh(["cpu"] * devices)
-    got = solve_batch_sharded(data, opts, mesh=mesh, x0=x0)
-    parts = [pl_.solve_batch(d, opts, x0=x) for d, x in
-             zip(shard_batch(data, mesh), shard_batch(x0, mesh))]
-    wants = [parts[0].map(lambda *xs: torch.cat(xs), *parts[1:])]
-    if not perturb:
-        wants.append(pl_.solve_batch(data, opts, x0=x0))
+    key = prng.prng_key(11)
+    got = solve_batch_sharded(data, opts, mesh=mesh, x0=x0, key=key)
+    keys = prng.split(key, lanes)
+    parts = [pl_.solve(d, opts, x0=x, key=k) for d, x, k in
+             zip(shard_batch(data, mesh), shard_batch(x0, mesh),
+                 shard_batch(keys, mesh))]
+    wants = [parts[0].map(lambda *xs: torch.cat(xs), *parts[1:]),
+             pl_.solve_batch(data, opts, x0=x0, key=key)]
     for want in wants:
         for a, b in ((got.x, want.x), (got.y, want.y), (got.ret, want.ret),
                      (got.stats.iter_total, want.stats.iter_total),
@@ -211,7 +216,7 @@ _WORKER = textwrap.dedent(r"""
     rank, port = int(sys.argv[1]), sys.argv[2]
     import torch
     import lcqpow_tpu_torch as lt
-    from lcqpow_tpu_torch import mixed
+    from lcqpow_tpu_torch import mixed, prng
     from lcqpow_tpu_torch.data import pad_lcqp
     from lcqpow_tpu_torch.parallel import (fleet_summary, make_mesh,
                                            solve_batch_sharded)
@@ -233,7 +238,9 @@ _WORKER = textwrap.dedent(r"""
     opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=100)
     hb = host_local_batch_to_global(local, device="cpu")
     sol = solve_batch_sharded(hb, opts, mesh=make_mesh(["cpu"]))
-    ref = lt.solve_batch(local, opts)
+    # The rank's lanes draw from their keys of the whole fleet's split.
+    keys = prng.split(prng.prng_key(opts.seed), hb.total)
+    ref = lt.solve(local, opts, key=keys[hb.offset:hb.offset + 2])
     same = all(torch.equal(a, b) for a, b in (
         (sol.x, ref.x), (sol.y, ref.y), (sol.ret, ref.ret),
         (sol.stats.iter_total, ref.stats.iter_total)))

@@ -10,11 +10,16 @@ Tolerances, and why:
   final penalties are equal; iterates agree to 1e-12 (measured 4.4e-16).
 * ``solve_batch_mixed``: the f32 predictor differs in summation order and
   in its inverse (the CPU port's plain Gauss-Jordan, JAX-on-CPU's block
-  recursion), and the step perturbation draws from different generators,
-  so the predictors' paths differ in the last f32 bits.  The combinatorial
-  outcome (return code, certification) must be equal, and certified points
-  agree to 1e-9: both certify stationarity to ~2.2e-10 and complementarity
-  to ~2.2e-13 in df32 on the same branch (measured 8.9e-15).
+  recursion), so the predictors' paths differ in the last f32 bits.  The
+  combinatorial outcome (return code, certification) must be equal, and
+  certified points agree to 1e-9: both certify stationarity to ~2.2e-10
+  and complementarity to ~2.2e-13 in df32 on the same branch (measured
+  8.9e-15).
+* With the step perturbation on (the default): both packages split the
+  same root key over the fleet and draw the same bits per lane and pass
+  (``lcqpow_tpu_torch/prng.py``), so the iteration counts and the
+  certification stages are equal too, for both inner engines, and the
+  escalation round draws from ``fold_in(key, 1)`` in both.
 """
 
 import dataclasses
@@ -29,7 +34,7 @@ import lcqpow_tpu as jl
 from lcqpow_tpu.problems import random_lcqp as j_random_lcqp
 
 import lcqpow_tpu_torch as pl_
-from lcqpow_tpu_torch import convert, mixed as pmixed
+from lcqpow_tpu_torch import convert, mixed as pmixed, prng
 from lcqpow_tpu_torch.problems import warm_up, warmup_fleet
 
 B = 16
@@ -200,3 +205,93 @@ def test_homotopy_options_match_jax(kw, start):
             atol = 2e-6 if f.name == "step_length" else 1e-12
             np.testing.assert_allclose(a, b, rtol=1e-9, atol=atol,
                                        equal_nan=True, err_msg=f.name)
+
+
+def _same_counts(p, j):
+    assert np.array_equal(p.ret.numpy(), np.asarray(j.ret))
+    assert np.array_equal(p.stats.iter_total.numpy(),
+                          np.asarray(j.stats.iter_total))
+    assert np.array_equal(p.stats.iter_outer.numpy(),
+                          np.asarray(j.stats.iter_outer))
+
+
+@pytest.mark.parametrize("engine", ["admm", "pas"])
+def test_perturbed_homotopy_matches_jax(engine):
+    jo, po = _opts(inner_solver=engine)
+    assert po.perturb_step
+    j = jl.solve_batch(_jax_fleet(B), jo)
+    p = pl_.solve_batch(warmup_fleet(B, device="cpu"), po)
+    _same_counts(p, j)
+    assert (p.ret.numpy() == 0).all()
+    np.testing.assert_allclose(p.x.numpy(), np.asarray(j.x), rtol=0,
+                               atol=1e-12)
+
+
+def _same_mixed(p, j):
+    _same_counts(p, j)
+    assert int((p.ret.numpy() == 0).sum()) == B
+    assert np.array_equal(p.stats.certified_stage.numpy(),
+                          np.asarray(j.stats.certified_stage))
+    np.testing.assert_allclose(p.x.numpy(), np.asarray(j.x), rtol=0,
+                               atol=1e-9)
+
+
+def test_perturbed_mixed_matches_jax_counts(mixed):
+    # The module's mixed fixture runs with the perturbation on (ADMM).
+    _same_mixed(mixed[1], mixed[0])
+
+
+def test_perturbed_mixed_pas_matches_jax():
+    jo, po = _opts(inner_solver="pas")
+    j = jl.solve_batch_mixed(_jax_fleet(B), jo, n_corrector_iters=6,
+                             escalate=1)
+    p = pl_.solve_batch_mixed(warmup_fleet(B, device="cpu"), po,
+                              n_corrector_iters=6, escalate=1)
+    _same_mixed(p, j)
+
+
+def test_escalation_draws_from_fold_in(monkeypatch):
+    # The retry of round 0 gets fold_in(root, 1), the JAX package's key,
+    # and its lanes take the JAX package's iteration counts.
+    keys = []
+    real = pmixed.solve_batch_mixed
+
+    def spy(*args, **kw):
+        keys.append(kw["key"])
+        return real(*args, **kw)
+
+    jo, po = _opts()
+    root = jax.random.PRNGKey(5)
+    j = jl.solve_batch_mixed(_jax_fleet(8), jo, key=root,
+                             n_corrector_iters=0, escalate=1)
+    monkeypatch.setattr(pmixed, "solve_batch_mixed", spy)
+    p = real(warmup_fleet(8, device="cpu"), po, key=np.asarray(root),
+             n_corrector_iters=0, escalate=1)
+    assert len(keys) == 1
+    assert torch.equal(keys[0], prng.fold_in(prng.prng_key(5), 1))
+    assert keys[0].tolist() == np.asarray(
+        jax.random.fold_in(root, 1)).tolist()
+    assert (p.stats.certified_stage.numpy() == 3).all()
+    _same_counts(p, j)
+
+
+def test_certificate_violation_is_taken_in_df32():
+    # Ax = 2 - 4e-9 against the lower bound 2 (and 1 - 3e-9 against the
+    # upper bound 1 - 6e-9): rounded to f32 first, as the JAX package's
+    # certificate does, Ax is 2 (1) and the violation 0; in df32 it is
+    # 4e-9 (3e-9), above the certificate's 1e-9 (1 + 2) at the first row.
+    from lcqpow_tpu_torch.ops import df32
+
+    f64 = lambda *v: torch.tensor([v], dtype=torch.float64)
+    Ax = df32.from_f64(f64(2.0 - 4e-9, 1.0 - 3e-9, 0.5))
+    lo = df32.from_f64(f64(2.0, -1e20, -1.0))
+    up = df32.from_f64(f64(1e20, 1.0 - 6e-9, 1.0))
+    has_l = torch.tensor([[True, False, True]])
+    has_u = torch.tensor([[False, True, True]])
+    viol = pmixed._violation(Ax, lo, up, has_l, has_u)
+    assert viol.shape == (1,)
+    np.testing.assert_allclose(float(viol[0]), 4e-9, rtol=1e-6)
+    collapsed = (lo.hi + lo.lo) - (Ax.hi + Ax.lo)
+    assert float(collapsed[0, 0]) == 0.0
+    viol_up = pmixed._violation(Ax, lo, up, torch.zeros_like(has_l), has_u)
+    np.testing.assert_allclose(float(viol_up[0]), 3e-9, rtol=1e-6)

@@ -8,7 +8,7 @@ Run from the root of a checkout::
 
 1. One process: ``solve_batch_sharded`` of ``warmup_fleet(B)`` over
    ``make_mesh()`` (every card, or ``--procs`` CPU "devices"), with
-   ``perturb_step=False`` (each slice draws from its own generator): its
+   ``perturb_step=False`` (the setting its recorded walls were taken at): its
    slices run at once, one worker thread a device.  After a small solve on
    every device and a small sharded solve (CUDA context, cuBLAS handles,
    the workers' streams: first-use costs stay out of the walls), three
