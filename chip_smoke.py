@@ -11,7 +11,8 @@ Phases, each printing one line with its seconds:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line;
 2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``
    (one process a library, all at once), and ptxas's registers and spills
-   of the GJ kernels at m = 8, 14, 32, 48 and of the Threefry kernel;
+   of the GJ kernels at m = 8, 14, 32, 48 and of the perturbation kernel
+   in float and double;
 3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
    Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
    (512, 48), (4096, 32), the pas-mixed-1024 path's (1024, 8) and
@@ -23,16 +24,21 @@ Phases, each printing one line with its seconds:
    device memory as the bound assumes, and with them warm in L2; of the
    plain version and ``torch.linalg.inv`` (a yardstick the port never
    calls), warm; and the kernel's call interval by CUDA events.  Then the
-   Threefry draw (``prng.perturb_step``) against its plain PyTorch version
-   at (B, n) in ``THREEFRY_SHAPES``, with about a third of the lanes
-   inactive: bitwise equality of the keys and draws (required), and the
-   same times (no library call computes it);
+   pass's step perturbation (``prng.perturb_apply``: the Threefry draw,
+   its add to the iterate and the keys' carry in one launch) against its
+   plain PyTorch version at (B, n) in ``THREEFRY_SHAPES``, in float32 and
+   float64, with about a third of the lanes not going and -0, subnormals
+   and +-1 in the iterate: bitwise equality of the keys and iterates
+   (required), the same device times (no library call computes it), and
+   the host microseconds per call (``perf_counter`` over 200 calls, then
+   one ``synchronize``) of the checked call and of the solver's per-solve
+   launcher (``prng.perturbation``);
 4. main: the warm-up fleet (64 ``random_lcqp(nV=8, nC=2, nComp=2)``
    instances tiled to B = 4096, bench.py's headline configuration) through
    ``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
    escalate=1)``: wall seconds, certified lanes, histogram of ``ret``, mean
    iterations, the GJ kernel's launches during the solve (in all and by
-   matrix order) and the Threefry kernel's, and an f64 host audit of the
+   matrix order) and the perturbation kernel's, and an f64 host audit of the
    certified lanes.  The fleet's root key is bench.py's, ``PRNGKey(1)``
    (``BENCH_KEY``), as on every path below.  Lanes, launches and iteration
    totals must equal ``MAIN_EXPECTED``;
@@ -72,13 +78,13 @@ Phases, each printing one line with its seconds:
    their keys of the fleet's split;
    the seven example scripts of ``EXAMPLE_SCRIPTS`` from
    ``examples_torch/``;
-10. threefry-driven: every (B, n) the Threefry kernel was launched at in
-   phases 4-9 (``prng.launch_shapes``: retries, slices, one-instance
+10. threefry-driven: every (B, n) the perturbation kernel was launched at
+   in phases 4-9 (``prng.launch_shapes``: retries, slices, one-instance
    calls) and not held in phase 3, held bitwise against the plain
-   version as there.
+   version in both types as there.
 
 Each of phases 6-8 prints its wall seconds, certified lanes, stages, mean
-iterations, the GJ kernel's launches by matrix order and the Threefry
+iterations, the GJ kernel's launches by matrix order and the perturbation
 kernel's launches, the resolved KKT form
 and the f64 audit (``lcqpow_tpu_torch.audit_solution``), and raises when
 the certified lanes fall below the JAX package's count (``PATHS``), when
@@ -108,10 +114,11 @@ import numpy as np
 import torch
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and FP32
-# (non-tensor-core) operations/s; and INT32 operations/s (NVIDIA H100 white
-# paper, SXM5, non-tensor, an IMAD counted as two).
+# and FP64 (non-tensor-core) operations/s; and INT32 operations/s (NVIDIA
+# H100 white paper, SXM5, non-tensor, an IMAD counted as two).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 33.5e12
 # Integer operations of one Threefry-2x32 hash (csrc/threefry.cu): 20
 # rounds of add, rotate (one funnel shift) and xor, 5 key injections of
@@ -130,7 +137,7 @@ PAS_F64_B = 256
 CIRCLE_CHUNK = 32
 WARMUP_NV = 8
 CIRCLE_NV = 202
-# The Threefry draw at the (B, n) the driven paths give it: the main
+# The step perturbation at the (B, n) the driven paths give it: the main
 # path's, pas-mixed-1024's and pas-warmup-256's fleets (n = 8); the
 # circle's chunks and its retries at the retry chunk of 8 lanes and at the
 # 5 lanes of its last round (n = 202); one lane (the main path's retry,
@@ -268,27 +275,33 @@ def bound_ms(B, m):
                                    else "operations")
 
 
-def threefry_bound_ms(B, n, n_active):
-    """Least device time of one ``perturb_step`` of B lanes, n elements:
-    keys in and out (16 bytes a lane each way), the mask (1 byte a lane)
-    and r (8 bytes an element) moved once, or (4 + 2n) hashes of
-    ``OPS_PER_HASH`` integer operations for each active lane, whichever
-    takes longer; and which of the two it is."""
-    bytes_ms = (B * 33 + B * n * 8) / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_active * (4 + 2 * n) * OPS_PER_HASH / INT32_OPS_PER_S * 1e3
+def threefry_bound_ms(B, n, n_active, dtype):
+    """Least device time of one ``perturb_apply`` of B lanes, n elements
+    of ``dtype``: keys in and out (16 bytes a lane each way), the mask (1
+    byte a lane), xk in and x out (an element each way) moved once; or
+    (4 + 2n) hashes of ``OPS_PER_HASH`` integer operations and n adds of
+    ``dtype`` for each going lane at their peak rates, whichever takes
+    longer; and which of the two it is."""
+    size = torch.finfo(dtype).bits // 8
+    bytes_ms = (B * 33 + 2 * B * n * size) / HBM_BYTES_PER_S * 1e3
+    flops = FP64_OPS_PER_S if dtype == torch.float64 else FP32_OPS_PER_S
+    ops_ms = (n_active * (4 + 2 * n) * OPS_PER_HASH / INT32_OPS_PER_S
+              + n_active * n / flops) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
 
 def threefry_ptxas(log):
-    """(registers, spill stores, spill loads) of the Threefry kernel from
-    nvcc's ``-Xptxas -v`` output."""
-    regs = re.search(r"Used (\d+) registers", log)
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      log)
-    if not (regs and spill):
-        raise AssertionError("no ptxas report of the Threefry kernel")
-    return int(regs.group(1)), int(spill.group(1)), int(spill.group(2))
+    """Type ("f" float, "d" double) -> (registers, spill stores, spill
+    loads) of the perturbation kernel from nvcc's ``-Xptxas -v`` output."""
+    def key_of(mangled):
+        name = re.search(r"perturb_apply_kernelI([fd])E", mangled)
+        return name.group(1) if name else None
+    usage = ptxas_entries(log, key_of)
+    if sorted(usage) != ["d", "f"] or None in sum(usage.values(), []):
+        raise AssertionError(f"no full ptxas report of the perturbation "
+                             f"kernel: {usage}")
+    return usage
 
 
 def lane_mask(B, seed, device="cuda"):
@@ -299,38 +312,68 @@ def lane_mask(B, seed, device="cuda"):
     return active
 
 
-def hold_threefry(prng, B, n, device="cuda"):
-    """The Threefry kernel (``prng.perturb_step``) against its plain
-    version at (B, n), on keys of a fleet's split and about a third of the
-    lanes inactive: raises unless keys and draws are equal bit for bit.
-    Returns (keys, active, max |difference|)."""
+def iterate(B, n, dtype, seed, device="cuda"):
+    """(B, n) values of ``dtype`` with -0, +0, subnormals of both signs
+    and +-1 at every third element among normal draws."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, n), generator=g, device=device, dtype=dtype)
+    tiny = torch.finfo(dtype).smallest_normal / 2 ** 3
+    special = torch.tensor([-0.0, 0.0, tiny, -tiny, 1.0, -1.0], dtype=dtype,
+                           device=device)
+    flat = x.view(-1)
+    flat[::3] = special.repeat(-(-flat[::3].numel() // 6))[
+        :flat[::3].numel()]
+    return x
+
+
+THREEFRY_DTYPES = (torch.float32, torch.float64)
+
+
+def hold_threefry(prng, B, n, dtype, device="cuda"):
+    """The perturbation kernel (``prng.perturb_apply``) against its plain
+    version at (B, n) in ``dtype``, on keys of a fleet's split, about a
+    third of the lanes not going and the special values of
+    :func:`iterate`: raises unless keys and iterates are equal bit for bit.
+    Returns (keys, go, xk, max |difference|)."""
     keys = prng.split(prng.prng_key(B + n, device), B)
-    active = lane_mask(B, seed=B + n, device=device)
-    K, R = prng.perturb_step(keys, active, n)
-    KP, RP = prng.perturb_step_plain(keys, active, n)
+    go = lane_mask(B, seed=B + n, device=device)
+    xk = iterate(B, n, dtype, seed=B + n, device=device)
+    eps = torch.finfo(dtype).eps
+    K, X = prng.perturb_apply(keys, go, xk, eps)
+    KP, XP = prng.perturb_apply_plain(keys, go, xk, eps)
     err = float((K - KP).abs().max())
-    if R.numel():
-        err = max(err, float((R - RP).abs().max()))
-    if not (torch.equal(K, KP) and torch.equal(R, RP)):
-        raise AssertionError(f"Threefry kernel and plain version differ "
-                             f"at B={B} n={n}: max|diff|={err}")
-    return keys, active, err
+    if X.numel():
+        err = max(err, float((X - XP).abs().max()))
+    ints = torch.int64 if dtype == torch.float64 else torch.int32
+    if not (torch.equal(K, KP) and torch.equal(X.view(ints), XP.view(ints))):
+        raise AssertionError(f"perturbation kernel and plain version differ "
+                             f"at B={B} n={n} {dtype}: max|diff|={err}")
+    return keys, go, xk, err
 
 
-def ptxas_usage(log, orders):
-    """(kernel, m, vector width) -> (registers, spill stores, spill loads)
-    from nvcc's ``-Xptxas -v`` output, for the GJ kernels of order in
-    ``orders``."""
+def host_us(fn, calls=200):
+    """Host microseconds per call over ``calls`` back-to-back calls, one
+    ``synchronize`` after the last: the launch path's cost on the host for
+    a call whose device time is shorter."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e6 / calls
+
+
+def ptxas_entries(log, key_of):
+    """key -> [registers, spill stores, spill loads] from nvcc's
+    ``-Xptxas -v`` output, for each entry function whose mangled name
+    ``key_of`` maps to a key (None: not reported)."""
     usage, key = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = re.search(r"(gj_[a-z]+_kernel)ILi(\d+)E(?:Li(\d+)E)?",
-                             entry.group(1))
-            key = None
-            if name and int(name.group(2)) in orders:
-                key = (name.group(1), int(name.group(2)),
-                       int(name.group(3) or 0))
+            key = key_of(entry.group(1))
+            if key is not None:
                 usage[key] = [None, None, None]
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -341,6 +384,19 @@ def ptxas_usage(log, orders):
         if key is not None and regs:
             usage[key][0] = int(regs.group(1))
     return usage
+
+
+def ptxas_usage(log, orders):
+    """(kernel, m, vector width) -> (registers, spill stores, spill loads)
+    from nvcc's ``-Xptxas -v`` output, for the GJ kernels of order in
+    ``orders``."""
+    def key_of(mangled):
+        name = re.search(r"(gj_[a-z]+_kernel)ILi(\d+)E(?:Li(\d+)E)?", mangled)
+        if name and int(name.group(2)) in orders:
+            return (name.group(1), int(name.group(2)),
+                    int(name.group(3) or 0))
+        return None
+    return ptxas_entries(log, key_of)
 
 
 def same_bits(K, P):
@@ -505,7 +561,7 @@ def two_stream_shard(lt, fleet, opts, x0=None, order="sc"):
     walls by kind."""
     from lcqpow_tpu_torch.parallel import (make_mesh, shard_batch,
                                            solve_batch_sharded)
-    from lcqpow_tpu_torch.solver import fleet_keys
+    from lcqpow_tpu_torch.prng import fleet_keys
 
     mesh = make_mesh(TWO_STREAMS)
     keys = fleet_keys(None, opts.seed, fleet.Q.shape[0], "cuda")
@@ -739,10 +795,10 @@ def main():
     for (name, m, vec), (regs, st, ld) in sorted(usage.items()):
         print(f"[ptxas] {name}<{m}{f',{vec}' if vec else ''}> "
               f"registers={regs} spill_stores={st} spill_loads={ld}")
-    regs, st, ld = threefry_ptxas(
-        paths["threefry"].with_suffix(".log").read_text())
-    print(f"[ptxas] perturb_step_kernel registers={regs} spill_stores={st} "
-          f"spill_loads={ld}")
+    for t, (regs, st, ld) in sorted(threefry_ptxas(
+            paths["threefry"].with_suffix(".log").read_text()).items()):
+        print(f"[ptxas] perturb_apply_kernel<{dict(f='float', d='double')[t]}>"
+              f" registers={regs} spill_stores={st} spill_loads={ld}")
     phase("build", t0, f"nvcc_seconds={_build.last_build_seconds:.3f} "
           f"libs={sorted(p.name for p in paths.values())}")
 
@@ -785,31 +841,38 @@ def main():
               f"{call_ms:.5f} (events, back-to-back calls)", flush=True)
     phase("kernel", t0, f"shapes={len(KERNEL_SHAPES)} max_abs_diff={max_err:.3e}")
 
-    # 3b. the Threefry draw vs plain
+    # 3b. the step perturbation vs plain
     t0 = time.perf_counter()
     tf_rows = {}
-    for B, n in THREEFRY_SHAPES:
-        keys, active, err = hold_threefry(prng, B, n)
-        n_active = int(active.sum())
-        call_ms = cuda_ms(lambda: prng.perturb_step(keys, active, n), 200)
-        ms = device_ms(lambda: prng.perturb_step(keys, active, n), 50,
-                       kernel="perturb_step", flush=l2.zero_)
-        warm_ms = device_ms(lambda: prng.perturb_step(keys, active, n), 50,
-                            kernel="perturb_step")
-        plain_ms = device_ms(lambda: prng.perturb_step_plain(keys, active, n),
-                             5)
-        plain_call_ms = cuda_ms(
-            lambda: prng.perturb_step_plain(keys, active, n), 20)
-        bound, bound_by = threefry_bound_ms(B, n, n_active)
-        tf_rows[(B, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                               bound_by=bound_by, max_abs_err=err)
-        print(f"[threefry] B={B} n={n} active={n_active} bitwise=True "
-              f"device_ms: kernel={ms:.5f} (L2 flushed) kernel_l2_warm="
-              f"{warm_ms:.5f} plain={plain_ms:.5f} bound={bound:.6g} "
-              f"({bound_by}) share_of_bound={bound / ms:.3f}; "
+    for (B, n), dtype in ((s, d) for s in THREEFRY_SHAPES
+                          for d in THREEFRY_DTYPES):
+        keys, go, xk, err = hold_threefry(prng, B, n, dtype)
+        eps = torch.finfo(dtype).eps
+        n_active = int(go.sum())
+        step = prng.perturbation(keys, xk, eps)
+        apply = lambda: prng.perturb_apply(keys, go, xk, eps)
+        plain = lambda: prng.perturb_apply_plain(keys, go, xk, eps)
+        call_ms = cuda_ms(apply, 200)
+        checked_us = host_us(apply)
+        step_us = host_us(lambda: step(keys, go, xk))
+        ms = device_ms(apply, 50, kernel="perturb_apply", flush=l2.zero_)
+        warm_ms = device_ms(apply, 50, kernel="perturb_apply")
+        plain_ms = device_ms(plain, 5)
+        plain_call_ms = cuda_ms(plain, 20)
+        bound, bound_by = threefry_bound_ms(B, n, n_active, dtype)
+        tf_rows[(B, n, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound, bound_by=bound_by,
+                                      max_abs_err=err, host_us=step_us)
+        print(f"[threefry] B={B} n={n} dtype={str(dtype)[6:]} "
+              f"going={n_active} bitwise=True device_ms: kernel={ms:.5f} "
+              f"(L2 flushed) kernel_l2_warm={warm_ms:.5f} plain="
+              f"{plain_ms:.5f} bound={bound:.6g} ({bound_by}) "
+              f"share_of_bound={bound / ms:.3f}; host_us_per_call: "
+              f"solver_step={step_us:.2f} checked={checked_us:.2f}; "
               f"kernel_call_ms={call_ms:.5f} plain_call_ms="
               f"{plain_call_ms:.5f} (events, back-to-back calls)", flush=True)
-    phase("threefry", t0, f"shapes={len(THREEFRY_SHAPES)} bitwise=True")
+    phase("threefry", t0, f"shapes={len(THREEFRY_SHAPES)} "
+          f"dtypes={len(THREEFRY_DTYPES)} bitwise=True")
 
     # 4. main path
     t0 = time.perf_counter()
@@ -921,12 +984,13 @@ def main():
     driven = sorted(prng.launch_shapes)
     late = [s for s in driven if s not in THREEFRY_SHAPES]
     for B, n in late:
-        hold_threefry(prng, B, n)
+        for dtype in THREEFRY_DTYPES:
+            hold_threefry(prng, B, n, dtype)
     phase("threefry-driven", t0, f"driven_shapes={driven} "
           f"held_now={late} bitwise=True")
 
     main_row = rows[(4096, 14)]
-    tf_row = tf_rows[(4096, 8)]
+    tf_row = tf_rows[(4096, 8, torch.float32)]
     print(json.dumps({"kernels": [{
         "name": "gj_inverse",
         "route": "cuda",
@@ -941,10 +1005,11 @@ def main():
         "library_ms": main_row["library_ms"],
         "shape": [4096, 14, 14],
     }, {
-        "name": "threefry_perturb_step",
+        "name": "threefry_perturb_apply",
         "route": "cuda",
         "source": "lcqpow_tpu_torch/csrc/threefry.cu",
-        # No pallas_call: the jax.random draw of the JAX package's loop.
+        # No pallas_call: the jax.random draw and its add to the iterate in
+        # the JAX package's loop.
         "replaces": "lcqpow_tpu/solver.py:496",
         "launches": tf_launches,
         "max_abs_err": max(r["max_abs_err"] for r in tf_rows.values()),
@@ -953,7 +1018,9 @@ def main():
         "bound_ms": tf_row["bound_ms"],
         "bound_by": tf_row["bound_by"],
         "library_ms": None,
+        "host_us": tf_row["host_us"],
         "shape": [4096, 8],
+        "dtype": "float32",
     }]}))
     print(f"[total] seconds={time.perf_counter() - t_all:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {

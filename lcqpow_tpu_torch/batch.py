@@ -14,9 +14,10 @@ from typing import Optional
 
 import torch
 
+from . import prng
 from .data import LCQPData, pad_lcqp, stack_lcqps
 from .options import Options
-from .solver import Solution, fleet_keys, solve
+from .solver import Solution, solve
 from .types import PrintLevel
 
 
@@ -76,7 +77,7 @@ def solve_batch(data: LCQPData, options: Options = Options(),
     """
     options = options.replace(print_level=PrintLevel.NONE)
     batch = data.Q.shape[0]
-    keys = fleet_keys(key, options.seed, batch, data.Q.device)
+    keys = prng.fleet_keys(key, options.seed, batch, data.Q.device)
 
     def fn(d, k, x, y):
         return solve(d, options, x0=x, y0=y, key=k)

@@ -41,8 +41,7 @@ from .ops.chol import spd_inverse, spd_inverse_light
 from .ops.df32 import DF
 from .ops.linalg import absmax as _amax, eye, lane_where, mtv, mv
 from .options import Options
-from .solver import (Solution, _as_batch, _classify, _on_device, fleet_keys,
-                     root_key, solve)
+from .solver import Solution, _as_batch, _classify, _on_device, solve
 from .solvers.admm import _ruiz_equilibrate, compress_rows, compression_cap
 from .stats import Stats
 from .types import AlgorithmStatus, PrintLevel, ReturnValue
@@ -616,8 +615,8 @@ def solve_batch_mixed(data: LCQPData, options: Options = Options(),
     options = options.replace(print_level=PrintLevel.NONE)
     options = _resolve_kkt_form(data, options)
     batch = data.Q.shape[0]
-    key = root_key(key, options.seed, data.Q.device)
-    keys = fleet_keys(key, options.seed, batch, data.Q.device)
+    key = prng.root_key(key, options.seed, data.Q.device)
+    keys = prng.fleet_keys(key, options.seed, batch, data.Q.device)
     if chunk is None:
         chunk = auto_chunk(batch, data.nC + 2 * data.nComp + data.nV)
 

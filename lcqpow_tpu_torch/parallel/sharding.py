@@ -36,10 +36,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import prng
 from .._sync import Baton
 from ..data import LCQPData
 from ..options import Options
-from ..solver import Solution, fleet_keys, solve
+from ..solver import Solution, solve
 from ..types import ReturnValue
 from .distributed import HostLocalBatch
 
@@ -131,15 +132,14 @@ def solve_batch_sharded(data: LCQPData, options: Options = Options(),
     exception is raised again here, after every worker has ended.  A mesh
     may name one card more than once: its slices then run on separate
     streams of that card."""
-    offset, total = 0, None
+    offset = 0
     if isinstance(data, HostLocalBatch):
-        offset, total, data = data.offset, data.total, data.data
+        offset, data = data.offset, data.data
     if mesh is None:
         mesh = make_mesh()
     home = data.Q.device
     local = data.Q.shape[0]
-    keys = fleet_keys(key, options.seed, local if total is None else total,
-                      home, offset, local)
+    keys = prng.fleet_keys(key, options.seed, offset + local, home, offset)
     slices = [(dev, d, k, x, y) for dev, d, k, x, y in zip(
         mesh, shard_batch(data, mesh), shard_batch(keys, mesh),
         shard_batch(x0, mesh), shard_batch(y0, mesh)) if d.Q.shape[0] > 0]

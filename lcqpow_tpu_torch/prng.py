@@ -31,13 +31,21 @@ Words are uint32 values held in int64 tensors: every operation masks with
 occurs.  A key is a (..., 2) tensor; the functions map over its leading
 axes, as ``vmap`` over the JAX functions does.
 
-:func:`perturb_step` is the solver's per-pass draw for a whole fleet.  On a
-CUDA tensor it launches the kernel in ``csrc/threefry.cu`` (one launch per
-pass, where the plain version takes some 750 small ops) or raises; on a
-CPU tensor it runs :func:`perturb_step_plain`.  The work is
-integer-only, so the two agree bit for bit.  ``launch_count`` counts the
-kernel's launches, never the plain version's, and ``launch_shapes``
-splits them by (B, n).
+:func:`lane_keys`, :func:`root_key` and :func:`fleet_keys` turn the key
+arguments of the entry points into keys on a device: one module decides how
+a fleet's root key is split over its lanes, whatever entry point, chunk,
+slice or rank solves them.
+
+:func:`perturb_apply` is the solver's whole step perturbation of a pass for
+a fleet: the draw, its scaled add to the iterate of the lanes still going,
+and the keys' carry.  On a CUDA tensor it launches the kernel in
+``csrc/threefry.cu`` once (where the plain version takes some 750 small
+ops) or raises; on a CPU tensor it runs :func:`perturb_apply_plain`.  The
+draw is integer-only and its product with ``eps`` exact, so the two agree
+bit for bit.  The solver checks its tensors once a solve
+(:func:`perturbation`) and launches unchecked once a pass.
+``launch_count`` counts the kernel's launches, never the plain version's,
+and ``launch_shapes`` splits them by (B, n).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -159,6 +168,45 @@ def randint(key: torch.Tensor, shape: tuple, minval: int,
     return minval + offset
 
 
+def lane_keys(key, batch: int, seed: int, device) -> torch.Tensor:
+    """The (batch, 2) int64 Threefry keys of a solve's lanes on ``device``:
+    ``key`` of shape (batch, 2) as given, one key of shape (2,) for every
+    lane, and ``prng_key(seed)`` for every lane when ``key`` is None (what
+    ``vmap`` over the JAX package's ``solve`` gives without a key).  A key
+    may be a tensor or an array-like of uint32 words (a JAX key array)."""
+    if key is None:
+        key = prng_key(seed, device)
+    elif not isinstance(key, torch.Tensor):
+        key = torch.from_numpy(np.asarray(key).astype(np.int64))
+    key = key.to(device=device, dtype=torch.int64)
+    if key.shape == (2,):
+        key = key.expand(batch, 2)
+    if key.shape != (batch, 2):
+        raise ValueError(f"key: needs shape (2,) or ({batch}, 2), got "
+                         f"{tuple(key.shape)}")
+    return key.contiguous()
+
+
+def root_key(key, seed: int, device) -> torch.Tensor:
+    """One (2,) key on ``device``: ``key`` (an array-like of two uint32
+    words), or ``prng_key(seed)`` when it is None."""
+    return lane_keys(key, 1, seed, device)[0]
+
+
+def fleet_keys(key, seed: int, total: int, device,
+               offset: int = 0) -> torch.Tensor:
+    """The (total - offset, 2) keys of lanes ``offset`` to ``total - 1`` of
+    a fleet: the root ``key`` (:func:`root_key`) split over ``total``
+    lanes, as the JAX package splits its key over a batch
+    (``batch.py:104-106``, ``mixed.py:970-972``) and over a sharded one
+    (``parallel/sharding.py:57-69``).  A split's first keys do not depend
+    on its length, so a lane's key depends only on the root key and the
+    lane's index in the fleet, whatever chunk, slice or rank solves it, and
+    a rank whose lanes start at ``offset`` needs only ``total = offset +``
+    its lane count."""
+    return split(root_key(key, seed, device), total)[offset:]
+
+
 def perturb_step_plain(keys: torch.Tensor, active: torch.Tensor, n: int):
     """One homotopy pass's draw for every lane, in plain PyTorch ops: an
     active lane splits its key (``key, sub = split(key)``), keeps the first
@@ -169,6 +217,18 @@ def perturb_step_plain(keys: torch.Tensor, active: torch.Tensor, n: int):
     r = randint(pair[:, 1], (n,), -1, 2)
     keys_out = torch.where(active[:, None], pair[:, 0], keys)
     return keys_out, torch.where(active[:, None], r, 0)
+
+
+def perturb_apply_plain(keys: torch.Tensor, go: torch.Tensor,
+                        xk: torch.Tensor, eps: float):
+    """One homotopy pass's whole step perturbation for every lane, in plain
+    PyTorch ops: :func:`perturb_step_plain`'s draw, then a going lane's
+    iterate ``xk + r.to(dtype) * eps`` (through the add even where r = 0,
+    so -0 becomes +0 there, as the JAX package's add does); a lane that is
+    not going keeps its key and its iterate bit for bit.  ``keys`` (B, 2)
+    int64, ``go`` (B,) bool, ``xk`` (B, n) float; returns (keys', x)."""
+    keys_out, r = perturb_step_plain(keys, go, xk.shape[-1])
+    return keys_out, torch.where(go[:, None], xk + r.to(xk.dtype) * eps, xk)
 
 
 def _count_launch(B: int, n: int) -> None:
@@ -182,53 +242,79 @@ def _count_launch(B: int, n: int) -> None:
 def _kernel():
     """The C entry point of ``csrc/threefry.cu``, built and loaded on first
     use, pointers and the stream declared as ``c_void_p``."""
-    fn = _build.load("threefry").threefry_perturb_step
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = _build.load("threefry").threefry_perturb_apply
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def perturb_step(keys: torch.Tensor, active: torch.Tensor, n: int):
-    """:func:`perturb_step_plain`'s result: by the plain version for CPU
-    tensors, by one launch of the CUDA kernel for CUDA tensors, which must
-    be a contiguous (B, 2) int64 ``keys`` and a (B,) bool ``active`` on the
-    same card; anything else raises."""
+def perturbation(keys: torch.Tensor, xk: torch.Tensor, eps: float):
+    """The pass's perturbation for one solve: returns ``step(keys, go, xk)
+    -> (keys', x)``, :func:`perturb_apply_plain` with this ``eps`` on
+    tensors of the shapes, type and device of ``keys`` (B, 2) and ``xk``
+    (B, n).  For CPU tensors ``step`` runs the plain version.  For CUDA
+    tensors this checks them once (contiguous, on one card, ``xk`` float32
+    or float64) and takes the thread's current stream there; ``step`` then
+    checks nothing and launches the kernel of ``csrc/threefry.cu`` once a
+    call on that stream.  Its callers hand it a (B,) bool ``go`` on the
+    same card and contiguous tensors of the checked shapes and types, as
+    the solver's pass does; :func:`perturb_apply` is the checked call."""
+    eps = float(eps)
     if keys.device.type == "cpu":
-        return perturb_step_plain(keys, active, n)
+        return lambda k, go, x: perturb_apply_plain(k, go, x, eps)
     if keys.device.type != "cuda":
-        raise ValueError(f"perturb_step: unsupported device {keys.device}")
+        raise ValueError(f"perturbation: unsupported device {keys.device}")
     if keys.dtype != torch.int64 or keys.ndim != 2 or keys.shape[1] != 2:
-        raise ValueError(f"perturb_step: needs (B, 2) int64 keys, got "
+        raise ValueError(f"perturbation: needs (B, 2) int64 keys, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
     B = keys.shape[0]
-    if (active.dtype != torch.bool or tuple(active.shape) != (B,)
-            or active.device != keys.device):
-        raise ValueError(f"perturb_step: needs a ({B},) bool mask on "
-                         f"{keys.device}")
-    if not (keys.is_contiguous() and active.is_contiguous()):
-        raise ValueError("perturb_step: needs contiguous tensors")
-    n = int(n)
-    if n < 0 or B * max(n, 1) >= 2 ** 31:
-        raise ValueError(f"perturb_step: B * n over the kernel's int range "
-                         f"or n < 0 (B={B}, n={n})")
-    keys_out = torch.empty_like(keys)
-    r = torch.empty((B, n), dtype=torch.int64, device=keys.device)
+    if (xk.dtype not in (torch.float32, torch.float64) or xk.ndim != 2
+            or xk.shape[0] != B or xk.device != keys.device):
+        raise ValueError(f"perturbation: needs a ({B}, n) float32 or float64 "
+                         f"xk on {keys.device}, got {tuple(xk.shape)} "
+                         f"{xk.dtype} on {xk.device}")
+    if not (keys.is_contiguous() and xk.is_contiguous()):
+        raise ValueError("perturbation: needs contiguous tensors")
+    n = xk.shape[1]
+    if B * max(n, 1) >= 2 ** 31:
+        raise ValueError(f"perturbation: B * n over the kernel's int range "
+                         f"(B={B}, n={n})")
     if B == 0:
-        return keys_out, r
-    args = (keys.data_ptr(), active.data_ptr(), keys_out.data_ptr(),
-            r.data_ptr(), B, n,
-            torch.cuda.current_stream(keys.device).cuda_stream)
-    # The launch goes to the thread's current card; switch only when the
-    # keys lie on another (the solver's loop never does, once a pass).
-    if keys.device.index == torch.cuda.current_device():
-        err = _kernel()(*args)
-    else:
-        with torch.cuda.device(keys.device):
-            err = _kernel()(*args)
-    if err != 0:
-        raise RuntimeError(f"perturb_step: kernel launch failed, "
-                           f"cudaError {err}")
-    _count_launch(B, n)
-    return keys_out, r
+        return lambda k, go, x: (torch.empty_like(k), torch.empty_like(x))
+    fn = _kernel()
+    f64 = int(xk.dtype == torch.float64)
+    card = keys.device.index
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+
+    def step(k, go, x):
+        keys_out = torch.empty_like(k)
+        out = torch.empty_like(x)
+        err = fn(k.data_ptr(), go.data_ptr(), x.data_ptr(),
+                 keys_out.data_ptr(), out.data_ptr(), B, n, eps, f64, card,
+                 stream)
+        if err != 0:
+            raise RuntimeError(f"perturb_apply: kernel launch failed, "
+                               f"cudaError {err}")
+        _count_launch(B, n)
+        return keys_out, out
+
+    return step
+
+
+def perturb_apply(keys: torch.Tensor, go: torch.Tensor, xk: torch.Tensor,
+                  eps: float):
+    """:func:`perturb_apply_plain`'s result: by the plain version for CPU
+    tensors, by one launch of the CUDA kernel for CUDA tensors, which must
+    be a contiguous (B, 2) int64 ``keys``, a (B,) bool ``go`` and a (B, n)
+    float32 or float64 ``xk`` on one card; anything else raises.  Every
+    call is checked (:func:`perturbation`, once a solve, is not)."""
+    step = perturbation(keys, xk, eps)
+    if keys.device.type == "cuda" and not (
+            go.dtype == torch.bool and tuple(go.shape) == (keys.shape[0],)
+            and go.device == keys.device and go.is_contiguous()):
+        raise ValueError(f"perturb_apply: needs a contiguous "
+                         f"({keys.shape[0]},) bool go on {keys.device}, got "
+                         f"{tuple(go.shape)} {go.dtype} on {go.device}")
+    return step(keys, go, xk)

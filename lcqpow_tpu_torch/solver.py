@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import prng
@@ -176,45 +175,6 @@ def _as_batch(data: LCQPData):
     return data, False
 
 
-def lane_keys(key, batch: int, seed: int, device) -> torch.Tensor:
-    """The (batch, 2) int64 Threefry keys of a solve's lanes on ``device``:
-    ``key`` of shape (batch, 2) as given, one key of shape (2,) for every
-    lane, and ``prng_key(seed)`` for every lane when ``key`` is None (what
-    ``vmap`` over the JAX package's ``solve`` gives without a key).  A key
-    may be a tensor or an array-like of uint32 words (a JAX key array)."""
-    if key is None:
-        key = prng.prng_key(seed, device)
-    elif not isinstance(key, torch.Tensor):
-        key = torch.from_numpy(np.asarray(key).astype(np.int64))
-    key = key.to(device=device, dtype=torch.int64)
-    if key.shape == (2,):
-        key = key.expand(batch, 2)
-    if key.shape != (batch, 2):
-        raise ValueError(f"key: needs shape (2,) or ({batch}, 2), got "
-                         f"{tuple(key.shape)}")
-    return key.contiguous()
-
-
-def root_key(key, seed: int, device) -> torch.Tensor:
-    """One (2,) key on ``device``: ``key`` (an array-like of two uint32
-    words), or ``prng_key(seed)`` when it is None."""
-    return lane_keys(key, 1, seed, device)[0]
-
-
-def fleet_keys(key, seed: int, total: int, device, offset: int = 0,
-               count: Optional[int] = None) -> torch.Tensor:
-    """The (count, 2) keys of lanes ``offset`` to ``offset + count`` (by
-    default every lane) of a fleet of ``total`` lanes: the root ``key``
-    (:func:`root_key`) split over the whole fleet, as the JAX package
-    splits its key over a batch (``batch.py:104-106``,
-    ``mixed.py:970-972``) and over a sharded one
-    (``parallel/sharding.py:57-69``).  A lane's key so depends only on the
-    root key and the lane's index in the fleet, whatever chunk, slice or
-    rank solves it."""
-    keys = prng.split(root_key(key, seed, device), total)
-    return keys if count is None else keys[offset:offset + count]
-
-
 def solve(data: LCQPData, options: Options = Options(),
           x0: Optional[torch.Tensor] = None,
           y0: Optional[torch.Tensor] = None,
@@ -224,7 +184,7 @@ def solve(data: LCQPData, options: Options = Options(),
     device of ``data``.  ``key`` feeds the step perturbation: per-lane keys
     (B, 2) for a batch, or one key (2,) (every lane of a batch starts from
     it); by default ``prng.prng_key(options.seed)``, as the JAX package's
-    ``solve`` takes ``PRNGKey(options.seed)`` (see :func:`lane_keys`).
+    ``solve`` takes ``PRNGKey(options.seed)`` (see :func:`prng.lane_keys`).
     ``x0`` and ``y0`` may be tensors or array-likes.  Only an unbatched
     solve prints its iterations (``options.print_level``)."""
     x0, y0 = _on_device(data, x0), _on_device(data, y0)
@@ -242,12 +202,12 @@ def solve(data: LCQPData, options: Options = Options(),
     cfg = options.admm
     nhist = max(int(options.n_dynamic_penalty), 1)
     i32 = torch.int32
-    keys0 = lane_keys(key, B, options.seed, dev)
+    keys0 = prng.lane_keys(key, B, options.seed, dev)
 
     ws = build_workspace(data, options)
 
     xk0 = torch.zeros((B, n), dtype=dtype, device=dev) if x0 is None \
-        else x0.to(dtype)
+        else x0.to(dtype).contiguous()
     if y0 is None:
         yk0 = torch.zeros((B, m_int), dtype=dtype, device=dev)
     else:
@@ -288,7 +248,11 @@ def solve(data: LCQPData, options: Options = Options(),
     stat_tol = options.stationarity_tolerance
     compl_tol = options.complementarity_tolerance
     beta = options.penalty_update_factor
-    eps_dt = torch.finfo(dtype).eps
+    # The step perturbation of a pass (one kernel launch on the card),
+    # checked here once for the solve's keys, iterate shape and stream;
+    # every pass's xk is an elementwise result of contiguous tensors.
+    perturb = prng.perturbation(keys0, xk0, torch.finfo(dtype).eps) \
+        if options.perturb_step else None
 
     store = options.store_steps
     T = options.max_iterations + 2
@@ -458,20 +422,20 @@ def solve(data: LCQPData, options: Options = Options(),
         st_next = res.state.select(pt_ok, st)
         pk_c = xnew - xk
         qp_fail_c = qp_failed(res.status)
-        xk_c = xk
         keys = c["key"]
-        if options.perturb_step:
-            # perturbStep (:554-555): each lane still going splits its key
-            # and draws randint(sub, (n,), -1, 2); the others keep theirs.
-            keys, r = prng.perturb_step(keys, go, n)
-            xk_c = xk + r.to(dtype) * eps_dt
+        if perturb is not None:
+            # perturbStep (:554-555): each lane still going splits its key,
+            # draws randint(sub, (n,), -1, 2) and adds it times eps to xk;
+            # the others keep their key and xk bit for bit (a running lane
+            # that is not going is done, as in the JAX package's done
+            # branch; the carry's freeze discards the rest's pass).
+            keys, xk = perturb(keys, go, xk)
         qk_val = (pk_c * Qk_mv(rho, pk_c)).sum(-1)
-        lk_val = (pk_c * (Qk_mv(rho, xk_c) + g_tilde)).sum(-1)
+        lk_val = (pk_c * (Qk_mv(rho, xk) + g_tilde)).sum(-1)
         alphak_c = torch.where((qk_val > 0) & (lk_val < 0),
                                torch.clamp_max(-lk_val / qk_val, 1.0),
                                1.0).to(dtype)
 
-        xk = lane_where(done, xk, xk_c)
         yk = lane_where(done, yk, yk_new)
         pk = lane_where(done, c["pk"], pk_c)
         alphak = torch.where(done, c["alphak"], alphak_c)
@@ -523,7 +487,10 @@ def solve(data: LCQPData, options: Options = Options(),
             done=done, qp_streak=qp_streak, streak_stat0=streak_stat0,
             streak_phi0=streak_phi0, ret=ret, algo=algo, x_best=x_best,
             y_best=y_best, score_best=score_best, key=keys)
-        c = {k: lane_where(run, new[k], c[k]) for k in c}
+        # The keys skip the freeze (hazard C-3): the perturbation kept the
+        # key of every lane not going, and go is a subset of run.
+        c = {k: new[k] if k == "key" else lane_where(run, new[k], c[k])
+             for k in c}
 
     xk, yk = c["xk"], c["yk"]
     if options.keep_best_iterate:

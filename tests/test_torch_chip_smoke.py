@@ -171,26 +171,37 @@ def test_launches_by_m_reads_and_resets(monkeypatch):
 
 THREEFRY_LOG = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd819perturb_step_kernelEPKxPKbPxS4_ii' for 'sm_90a'
-ptxas info    : Function properties for _ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd819perturb_step_kernelEPKxPKbPxS4_ii
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd820perturb_apply_kernelIdEEvPKxPKbPKT_PxPS5_iiS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd820perturb_apply_kernelIdEEvPKxPKbPKT_PxPS5_iiS5_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd820perturb_apply_kernelIfEEvPKxPKbPKT_PxPS5_iiS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__15f22fe9_11_threefry_cu_b7d9fcd820perturb_apply_kernelIfEEvPKxPKbPKT_PxPS5_iiS5_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 24 registers, used 0 barriers
 """
 
 
 def test_threefry_ptxas_and_bound():
-    assert chip_smoke.threefry_ptxas(THREEFRY_LOG) == (24, 0, 0)
+    import torch
+
+    assert chip_smoke.threefry_ptxas(THREEFRY_LOG) == {"d": [30, 0, 0],
+                                                       "f": [24, 4, 4]}
     with pytest.raises(AssertionError):
         chip_smoke.threefry_ptxas("ptxas info    : 0 bytes gmem")
-    # (4096, 8), every lane active: 4096 * (33 + 64) bytes against
-    # 4096 * 20 hashes of 79 operations; the hashes take longer.
-    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 4096)
-    ops_ms = 4096 * 20 * 79 / 33.5e12 * 1e3
+    with pytest.raises(AssertionError):     # one type's report missing
+        chip_smoke.threefry_ptxas(THREEFRY_LOG.split("ptxas info    : Used "
+                                                     "30")[0])
+    # (4096, 8) float32, every lane going: 4096 * (33 + 2 * 32) bytes
+    # against 4096 * 20 hashes of 79 integer operations and 8 adds; the
+    # operations take longer.
+    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 4096, torch.float32)
+    ops_ms = (4096 * 20 * 79 / 33.5e12 + 4096 * 8 / 67e12) * 1e3
     assert by == "operations" and ms == pytest.approx(ops_ms, rel=1e-12)
-    # No lane active: only the bytes are left.
-    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 0)
+    # No lane going: only the bytes are left, 8 bytes an element in f64.
+    ms, by = chip_smoke.threefry_bound_ms(4096, 8, 0, torch.float64)
     assert by == "bytes"
-    assert ms == pytest.approx(4096 * 97 / 3.35e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(4096 * (33 + 128) / 3.35e12 * 1e3, rel=1e-12)
 
 
 def _retry_widths(lanes, stages, rounds, chunk):
@@ -249,7 +260,18 @@ def test_retry_widths():
 
 @pytest.mark.parametrize("B,n", [(5, 8), (1, 202), (3, 0)])
 def test_hold_threefry_on_cpu(B, n):
+    import torch
+
     from lcqpow_tpu_torch import prng
 
-    keys, active, err = chip_smoke.hold_threefry(prng, B, n, device="cpu")
-    assert tuple(keys.shape) == (B, 2) and bool(active[0]) and err == 0.0
+    for dtype in chip_smoke.THREEFRY_DTYPES:
+        keys, go, xk, err = chip_smoke.hold_threefry(prng, B, n, dtype,
+                                                     device="cpu")
+        assert tuple(keys.shape) == (B, 2) and bool(go[0]) and err == 0.0
+        assert xk.dtype == dtype and tuple(xk.shape) == (B, n)
+        if n >= 6:
+            # -0, +0, two subnormals and +-1 among the first six elements.
+            head = xk[0, :6:3]
+            assert torch.signbit(head[0]) and head[0] == 0
+            tiny = torch.finfo(dtype).smallest_normal
+            assert 0 < abs(float(xk.view(-1)[6])) < tiny

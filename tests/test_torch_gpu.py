@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: its kernels (the Gauss-Jordan
-inverse, the Threefry draw) against their plain PyTorch versions.  They
-skip without a card.
+inverse, the step perturbation's draw and apply) against their plain
+PyTorch versions.  They skip without a card.
 
 This file imports no JAX, so it also runs on a machine without it::
 
@@ -222,52 +222,88 @@ def _keys_and_mask(B, seed):
     return keys.cuda(), active.cuda()
 
 
+def _iterate(B, n, dtype, seed):
+    """(B, n) values of ``dtype`` on the card with -0, +0, subnormals and
+    +-1 at every third element among normal draws."""
+    flat = np.random.default_rng(seed).normal(size=B * n).astype(dtype)
+    tiny = np.finfo(dtype).smallest_subnormal
+    special = np.array([-0.0, 0.0, 3 * tiny, -5 * tiny, 1.0, -1.0], dtype)
+    flat[::3] = np.resize(special, flat[::3].shape)
+    return torch.from_numpy(flat.reshape(B, n)).cuda()
+
+
+DTYPES = {"f32": (torch.float32, np.float32), "f64": (torch.float64, np.float64)}
+
+
 # The main path's, pas-mixed-1024's and pas-warmup-256's shapes (n = 8),
 # the circle's chunk, retries and one instance (n = 202), a ragged batch,
 # one lane, every n up to 20 at a prime batch, no element at all, and a
-# lane count that is not a multiple of the block.  Integer operations
-# only: bitwise.
+# lane count that is not a multiple of the block; in both types.  The draw
+# is integer-only and the product with eps exact, so the one rounding is
+# the add's (built with --fmad=false): bitwise, -0 and subnormals included.
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("B,n", [(4096, 8), (1024, 8), (256, 8), (4095, 8),
                                  (32, 202), (8, 202), (5, 202), (1, 202),
                                  (1, 2), (1, 1), (5, 0), (300, 8)]
                          + [(389, n) for n in range(1, 21)])
-def test_threefry_kernel_matches_plain_on_card(B, n):
+def test_perturb_apply_kernel_matches_plain_on_card(B, n, dt):
     _card()
-    keys, active = _keys_and_mask(B, seed=B + n)
+    tdt, ndt = DTYPES[dt]
+    keys, go = _keys_and_mask(B, seed=B + n)
+    x = _iterate(B, n, ndt, seed=B + n)
+    eps = torch.finfo(tdt).eps
     before = prng.launch_count
-    k, r = prng.perturb_step(keys, active, n)
-    kp, rp = prng.perturb_step_plain(keys, active, n)
+    k, got = prng.perturb_apply(keys, go, x, eps)
+    kp, want = prng.perturb_apply_plain(keys, go, x, eps)
     torch.cuda.synchronize()
     assert prng.launch_count == before + 1
-    assert torch.equal(k, kp) and torch.equal(r, rp)
-    assert k.dtype == r.dtype == torch.int64 and tuple(r.shape) == (B, n)
+    assert torch.equal(k, kp) and _same_bits(got, want)
+    assert k.dtype == torch.int64 and got.dtype == tdt
+    assert tuple(got.shape) == (B, n)
+    assert _same_bits(got[~go], x[~go])
 
 
 @pytest.mark.gpu
-def test_threefry_kernel_chains_like_plain_on_card():
-    # Twenty passes, each from the keys the last one left, as the solver
-    # carries them.
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_perturb_apply_kernel_chains_like_plain_on_card(dt):
+    # Twenty passes, each from the keys and iterate the last one left, as
+    # the solver carries them, with lanes finishing on the way; once
+    # through the solver's per-solve launcher, once checked.
     _card()
-    keys, active = _keys_and_mask(64, seed=3)
-    kp = keys.clone()
-    for _ in range(20):
-        keys, r = prng.perturb_step(keys, active, 8)
-        kp, rp = prng.perturb_step_plain(kp, active, 8)
-        assert torch.equal(keys, kp) and torch.equal(r, rp)
+    tdt, ndt = DTYPES[dt]
+    B, n = 64, 8
+    keys, _ = _keys_and_mask(B, seed=3)
+    x = _iterate(B, n, ndt, seed=3)
+    eps = torch.finfo(tdt).eps
+    step = prng.perturbation(keys, x, eps)
+    kp, xp = keys.clone(), x.clone()
+    kc, xc = keys.clone(), x.clone()
+    for p in range(20):
+        go = (torch.arange(B, device="cuda") >= 3 * p - 20).contiguous()
+        keys, x = step(keys, go, x)
+        kc, xc = prng.perturb_apply(kc, go, xc, eps)
+        kp, xp = prng.perturb_apply_plain(kp, go, xp, eps)
+        assert torch.equal(keys, kp) and _same_bits(x, xp), p
+        assert torch.equal(kc, kp) and _same_bits(xc, xp), p
 
 
 @pytest.mark.gpu
-def test_threefry_kernel_rejects_what_it_does_not_take():
+def test_perturb_apply_kernel_rejects_what_it_does_not_take():
+    # A CUDA tensor the kernel does not take raises; nothing falls back to
+    # the plain version.
     _card()
-    keys, active = _keys_and_mask(8, seed=1)
-    with pytest.raises(ValueError):
-        prng.perturb_step(keys.to(torch.int32), active, 4)
-    with pytest.raises(ValueError):
-        prng.perturb_step(keys, active.to(torch.int32), 4)
-    with pytest.raises(ValueError):
-        prng.perturb_step(keys.t().contiguous().t(), active, 4)
-    with pytest.raises(ValueError):
-        prng.perturb_step(keys, active[:4], 4)
-    with pytest.raises(ValueError):
-        prng.perturb_step(keys, active.cpu(), 4)
+    keys, go = _keys_and_mask(8, seed=1)
+    x = _iterate(8, 4, np.float32, seed=1)
+    eps = 1e-7
+    before = prng.launch_count
+    bad = [(keys.to(torch.int32), go, x), (keys, go.to(torch.int32), x),
+           (keys.t().contiguous().t(), go, x), (keys, go[:4], x),
+           (keys, go.cpu(), x), (keys, go, x.half()), (keys, go, x[:4]),
+           (keys, go, x.t().contiguous().t()), (keys, go, x.cpu()),
+           (keys, go, x[:, :, None]), (keys, go, x.to(torch.int64))]
+    for i, (k, g, xx) in enumerate(bad):
+        with pytest.raises(ValueError):
+            prng.perturb_apply(k, g, xx, eps)
+            pytest.fail(f"case {i} was taken")
+    assert prng.launch_count == before

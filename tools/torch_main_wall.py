@@ -35,8 +35,13 @@ With ``--ops``, one more call per mode runs under ``torch.profiler`` (host
 ops only) and counts the ops it dispatches, by name; and a tree that has
 ``lcqpow_tpu_torch.prng`` also times, on the main path's
 own tensors, what it adds per call (``micro``, ms per call, 200 calls,
-CUDA events on the card): the draw's wrapper and kernel against the
-``torch.randint`` an older tree draws with; the certificate's feasibility
+CUDA events on the card): the pass's whole step perturbation as that
+tree's solver runs it (``perturb_pass``: one ``prng.perturbation`` step
+where the tree has it, else ``prng.perturb_step`` with the cast, scale,
+add and the two ``lane_where`` of iterate and keys around it), also as
+host microseconds per pass (``perturb_pass_host_us``: ``perf_counter``
+over 200 passes, then one ``synchronize``), against the ``torch.randint``
+a tree before the key discipline drew with; the certificate's feasibility
 in df32 (``mixed._violation``) against the f32-first form it replaced;
 the split of the root key over the fleet; and the ``lane_where`` of the
 carried keys; with the number of ``_violation`` calls in one main call.
@@ -112,6 +117,16 @@ def per_call_ms(fn, calls=200):
     return (time.perf_counter() - t) * 1e3 / calls
 
 
+def host_us(fn, calls=200):
+    fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e6 / calls
+
+
 def probe_us(ops=2000):
     a = torch.zeros(1, device=device)
     sync()
@@ -125,9 +140,10 @@ def probe_us(ops=2000):
 def micro(data, opts):
     # The main path's own tensors: the fleet's keys and, captured from its
     # first call, the certificate's feasibility arguments.
-    from lcqpow_tpu_torch import mixed
+    from lcqpow_tpu_torch import mixed, solver
     from lcqpow_tpu_torch.ops.linalg import lane_where
-    from lcqpow_tpu_torch.solver import fleet_keys
+
+    fleet_keys = getattr(prng, "fleet_keys", None) or solver.fleet_keys
 
     seen = []
     orig = mixed._violation
@@ -153,10 +169,22 @@ def micro(data, opts):
     B, n = data.Q.shape[0], data.nV
     keys = fleet_keys(None, 1, B, data.Q.device)
     go = torch.ones(B, dtype=torch.bool, device=data.Q.device)
+    done = ~go
+    xk = torch.randn((B, n), device=data.Q.device)
+    eps = torch.finfo(xk.dtype).eps
     g = torch.Generator(device=data.Q.device).manual_seed(1)
+    if hasattr(prng, "perturbation"):
+        step = prng.perturbation(keys, xk, eps)
+        perturb_pass = lambda: step(keys, go, xk)
+    else:
+        def perturb_pass():
+            k, r = prng.perturb_step(keys, go, n)
+            x = lane_where(done, xk, xk + r.to(xk.dtype) * eps)
+            return lane_where(go, k, keys), x
     before = prng.launch_count
     out = dict(
-        perturb_step=per_call_ms(lambda: prng.perturb_step(keys, go, n)),
+        perturb_pass=per_call_ms(perturb_pass),
+        perturb_pass_host_us=host_us(perturb_pass),
         torch_randint=per_call_ms(lambda: torch.randint(
             -1, 2, (B, n), generator=g, device=data.Q.device)),
         violation_df32=per_call_ms(lambda: mixed._violation(
