@@ -11,13 +11,15 @@ Phases, each printing one line with its seconds:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line;
 2. build: ``nvcc`` of every kernel source under ``lcqpow_tpu_torch/csrc``
    (one process a library, all at once), and ptxas's registers and spills
-   of the GJ kernels at m = 8, 14, 32, 48 and of the perturbation kernel
+   of the GJ kernels at the orders of ``PTXAS_ORDERS`` (a spill of the
+   wide kernel, m = 33-48, fails the run) and of the perturbation kernel
    in float and double;
 3. kernel: the Gauss-Jordan kernel against its plain PyTorch version on
    Jacobi-scaled SPD batches at (B, m) in (4096, 8), (4096, 14), (4095, 14),
    (512, 48), (4096, 32), the pas-mixed-1024 path's (1024, 8) and
-   (1024, 14) and, for the launch-plus-latency floor of one matrix and
-   the one-call mixed path of phase 9, (1, 2), (1, 4), (1, 8) and (1, 14):
+   (1024, 14), the circle-N20-512 path's (512, 42) and, for the
+   launch-plus-latency floor of one matrix and the one-call mixed path of
+   phase 9, (1, 2), (1, 4), (1, 8), (1, 14) and (1, 42):
    bitwise equality (required), and device
    times per call (``torch.profiler``) beside the bound: of the kernel with
    the L2 cache flushed before each call, so that its inputs come from
@@ -52,7 +54,11 @@ Phases, each printing one line with its seconds:
 8. circle-N100: ``circle_fleet(CIRCLE_B)`` (OptimizeOnCircle N = 100,
    nV = 202, m = 503: the compressed Schur form and the sweep inverse)
    through ``solve_batch_mixed(chunk=32, escalate=3)`` from the lifted
-   start, stationarity tolerance 1e-2.
+   start, stationarity tolerance 1e-2; then circle-N20-512: the same fleet
+   construction at N = 20 (``circle_fleet(CIRCLE20_B, N=CIRCLE20_N)``,
+   nV = 42, Schur m = 103), B = 512, no chunk, ``escalate=3``, the same
+   options: the predictor's f32 inverses are the GJ kernel's order 42
+   (the wide design of m = 33-48).
 
 9. api: the reference-compatible surface on the card, one line per step
    with its wall seconds and the kernel's launches by order (counts set to
@@ -78,12 +84,14 @@ Phases, each printing one line with its seconds:
    their keys of the fleet's split;
    the seven example scripts of ``EXAMPLE_SCRIPTS`` from
    ``examples_torch/``;
-10. threefry-driven: every (B, n) the perturbation kernel was launched at
-   in phases 4-9 (``prng.launch_shapes``: retries, slices, one-instance
-   calls) and not held in phase 3, held bitwise against the plain
-   version in both types as there.
+10. driven shapes: every (B, m) the GJ kernel was launched at in phases
+   4-9 (``gj_inverse.launch_shapes``) and not held in phase 3, held
+   bitwise against its plain version; every (B, n) the perturbation
+   kernel was launched at there (``prng.launch_shapes``: retries, slices,
+   one-instance calls) and not held in phase 3, held bitwise against the
+   plain version in both types as there.
 
-Each of phases 6-8 prints its wall seconds, certified lanes, stages, mean
+Each path of phases 6-8 prints its wall seconds, certified lanes, stages, mean
 iterations, the GJ kernel's launches by matrix order and the perturbation
 kernel's launches, the resolved KKT form
 and the f64 audit (``lcqpow_tpu_torch.audit_solution``), and raises when
@@ -127,16 +135,23 @@ OPS_PER_HASH = 79
 
 B_MAIN = 4096
 # The shapes the driven paths give the kernel (the main path's 4096 lanes,
-# pas-mixed-1024's 1024, at m = 8 and 14), a ragged batch, the largest
-# orders, and one matrix.
+# pas-mixed-1024's 1024, at m = 8 and 14; circle-N20-512's 512 at m = 42),
+# a ragged batch, the largest orders, and one matrix.
 KERNEL_SHAPES = [(4096, 8), (4096, 14), (4095, 14), (512, 48), (4096, 32),
-                 (1, 8), (1, 14), (1024, 8), (1024, 14), (1, 2), (1, 4)]
+                 (1, 8), (1, 14), (1024, 8), (1024, 14), (1, 2), (1, 4),
+                 (512, 42), (1, 42)]
 # Widths of the driven fleets beside the main one, and the problems' n.
 PAS_MIXED_B = 1024
 PAS_F64_B = 256
 CIRCLE_CHUNK = 32
 WARMUP_NV = 8
 CIRCLE_NV = 202
+# The circle fleet at N = 20 (nV = 42, nC = 21, nComp = 20, Schur m =
+# 103), full width: its predictor inverts 42 x 42 f32 matrices by the GJ
+# kernel's wide design.
+CIRCLE20_N = 20
+CIRCLE20_B = 512
+CIRCLE20_NV = 42
 # The step perturbation at the (B, n) the driven paths give it: the main
 # path's, pas-mixed-1024's and pas-warmup-256's fleets (n = 8); the
 # circle's chunks and its retries at the retry chunk of 8 lanes and at the
@@ -164,11 +179,12 @@ MAIN_EXPECTED = dict(certified=B_MAIN, launches_by_m={8: 6, 14: 131},
                      stages={2: B_MAIN - 1, 3: 1}, threefry_launches=55)
 # Paths beside the main one, from bench.py's rows.  ``floor``: the lanes
 # the JAX package certified on its TPU run (BENCH_DETAIL.json), which the
-# port must reach.  ``pinned``: the outcome of every card run since the
-# port draws the JAX package's bits (certified lanes, lanes by
-# certification stage or, for the plain f64 solve, by return code, the
-# iteration sum, the GJ kernel's launches by order, the Threefry kernel's
-# launches, and for the circle the lanes outside the strict audit), held
+# port must reach (circle-N20-512: the port's CPU run).  ``pinned``: the
+# outcome of every card run since the port draws the JAX package's bits
+# (certified lanes, lanes by certification stage or, for the plain f64
+# solve, by return code, the iteration sum, the GJ kernel's launches by
+# order, the Threefry kernel's launches, and for the circles the lanes
+# outside the strict audit), held
 # exactly, as MAIN_EXPECTED is.
 CIRCLE_B = 128
 # The circle fleet that two threads solve at once on the card (phase 9),
@@ -196,6 +212,13 @@ PATHS = {
             certified=124, stages={0: 4, 2: 101, 3: 16, 4: 6, 5: 1},
             iter_total_sum=3470, launches_by_m={}, threefry_launches=533,
             strict_audit_fails=15)),
+    # No TPU run of this fleet: the floor is the port's own CPU run
+    # (tools/torch_circle_fleet.py --device cpu: 512 certified).
+    "circle-N20-512": dict(
+        floor=512, audit_ceiling=CIRCLE_AUDIT_CEILING, pinned=dict(
+            certified=512, stages={2: 512}, iter_total_sum=8914,
+            launches_by_m={42: 555}, threefry_launches=29,
+            strict_audit_fails=2)),
 }
 # The example scripts tests/test_examples.py runs, each with a line it
 # must print.
@@ -211,7 +234,7 @@ EXAMPLE_SCRIPTS = {
 # Written before each timed kernel call to push its inputs out of L2
 # (50 MB on an H100): 256 MiB of float32.
 FLUSH_FLOATS = 64 * 2 ** 20
-PTXAS_ORDERS = (8, 14, 32, 48)
+PTXAS_ORDERS = (8, 14, 32, 33, 40, 42, 48)
 
 
 def phase(name, t0, msg):
@@ -239,8 +262,10 @@ def device_ms(fn, reps, kernel=None, flush=None, tries=3):
     ``reps`` calls: the time of every kernel the call launches or, given
     ``kernel``, of the kernels whose name holds it.  Given ``flush``,
     ``flush()`` runs before every call and ``kernel`` keeps its time out.
-    A trace with no such device time (the profiler dropped its events, seen
-    once in several hundred traces) is taken again, up to ``tries`` times."""
+    A trace with no such device time, or given ``kernel`` with another
+    count of its launches than ``reps`` (the profiler dropped events: seen
+    once in several hundred traces, and a partial loss reads low), is
+    taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     assert flush is None or kernel is not None
@@ -253,15 +278,16 @@ def device_ms(fn, reps, kernel=None, flush=None, tries=3):
                     flush()
                 fn()
             torch.cuda.synchronize()
-        us = 0.0
+        us, launches = 0.0, 0
         for e in prof.key_averages():
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and (kernel is None or kernel in e.key)):
                 us += getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0.0:
+                launches += e.count
+        if us > 0.0 and (kernel is None or launches == reps):
             return us / reps / 1e3
-    raise AssertionError(f"the profiler recorded no device time in {tries} "
+    raise AssertionError(f"the profiler recorded no full trace in {tries} "
                          "traces")
 
 
@@ -399,10 +425,41 @@ def ptxas_usage(log, orders):
     return ptxas_entries(log, key_of)
 
 
+def check_wide_ptxas(usage, orders):
+    """Raise unless :func:`ptxas_usage`'s ``usage`` reports the wide GJ
+    kernel at every order of ``orders`` above 32, none of them spilling
+    (a spill to local memory is a fault of that design)."""
+    wide = {k: v for k, v in usage.items() if k[0] == "gj_wide_kernel"}
+    if sorted(k[1] for k in wide) != sorted(m for m in orders if m > 32):
+        raise AssertionError(f"no full ptxas report of the wide GJ kernel: "
+                             f"{wide}")
+    if any(st or ld for _, st, ld in wide.values()):
+        raise AssertionError(f"the wide GJ kernel spills: {wide}")
+
+
 def same_bits(K, P):
     """Equal values and equal bit patterns (-0 is not +0)."""
     return bool(torch.equal(K, P)) and bool(
         torch.equal(K.view(torch.int32), P.view(torch.int32)))
+
+
+def hold_gj(gj, B, m):
+    """The GJ kernel against its plain version on :func:`spd_batch` (B, m):
+    raises unless they are equal bit for bit and the inverse's residual is
+    under 1e-3.  Returns (S, max |difference|, residual)."""
+    S = spd_batch(B, m, seed=m)
+    K = gj.gj_inverse(S)
+    P = gj.gj_inverse_plain(S)
+    torch.cuda.synchronize()
+    err = float((K - P).abs().max())
+    if not same_bits(K, P):
+        raise AssertionError(f"kernel and plain version differ at B={B} "
+                             f"m={m}: max|diff|={err:.3e}")
+    resid = float((K @ S - torch.eye(m, device="cuda")).abs().max())
+    if not resid < 1e-3:
+        raise AssertionError(f"kernel inverse residual {resid:.3e} "
+                             f"at B={B} m={m}")
+    return S, err, resid
 
 
 def spd_batch(B, m, seed):
@@ -452,8 +509,9 @@ def strict_audit_failures(lt, data, sol, opts):
 
 def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     """Drive one path with the kernel's counts set to 0 just before and
-    read just after; print and check its outcome (see ``PATHS``).  With no
-    ``audit_ceiling`` the f64 audit is the strict one."""
+    read just after; print and check its outcome (see ``PATHS``) and
+    return it.  With no ``audit_ceiling`` the f64 audit is the strict
+    one."""
     import lcqpow_tpu_torch as lt
     from lcqpow_tpu_torch import prng
     from lcqpow_tpu_torch.mixed import _resolve_kkt_form
@@ -510,6 +568,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     if got != pinned:
         raise AssertionError(f"{name}: {got}, pinned {pinned}")
     phase(name, t0, f"certified={got['certified']}")
+    return got
 
 
 def circle_oracle(x):
@@ -795,6 +854,7 @@ def main():
     for (name, m, vec), (regs, st, ld) in sorted(usage.items()):
         print(f"[ptxas] {name}<{m}{f',{vec}' if vec else ''}> "
               f"registers={regs} spill_stores={st} spill_loads={ld}")
+    check_wide_ptxas(usage, PTXAS_ORDERS)
     for t, (regs, st, ld) in sorted(threefry_ptxas(
             paths["threefry"].with_suffix(".log").read_text()).items()):
         print(f"[ptxas] perturb_apply_kernel<{dict(f='float', d='double')[t]}>"
@@ -808,20 +868,7 @@ def main():
     max_err = 0.0
     l2 = torch.empty(FLUSH_FLOATS, device="cuda")
     for B, m in KERNEL_SHAPES:
-        S = spd_batch(B, m, seed=m)
-        K = gj.gj_inverse(S)
-        P = gj.gj_inverse_plain(S)
-        torch.cuda.synchronize()
-        err = float((K - P).abs().max())
-        bitwise = same_bits(K, P)
-        eye = torch.eye(m, device="cuda")
-        resid = float((K @ S - eye).abs().max())
-        if not bitwise:
-            raise AssertionError(f"kernel and plain version differ at B={B} "
-                                 f"m={m}: max|diff|={err:.3e}")
-        if not resid < 1e-3:
-            raise AssertionError(f"kernel inverse residual {resid:.3e} "
-                                 f"at B={B} m={m}")
+        S, err, resid = hold_gj(gj, B, m)
         max_err = max(max_err, err)
         call_ms = cuda_ms(lambda: gj.gj_inverse(S), 200)
         ms = device_ms(lambda: gj.gj_inverse(S), 50, kernel="gj_",
@@ -833,7 +880,7 @@ def main():
         rows[(B, m)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound, bound_by=bound_by)
         print(f"[kernel] B={B} m={m} max_abs_diff={err:.3e} "
-              f"bitwise={bitwise} inv_resid={resid:.3e} device_ms: "
+              f"bitwise=True inv_resid={resid:.3e} device_ms: "
               f"kernel={ms:.5f} (L2 flushed) kernel_l2_warm={warm_ms:.5f} "
               f"plain={plain_ms:.5f} linalg_inv={lib_ms:.5f} "
               f"bound={bound:.6g} ({bound_by}) share_of_bound="
@@ -887,8 +934,9 @@ def main():
     gj.launch_count = 0
     gj.launch_counts.clear()
     prng.launch_count = 0
-    # Every shape the driven paths (phases 4-9) launch the draw at.
+    # Every shape the driven paths (phases 4-9) launch the kernels at.
     prng.launch_shapes.clear()
+    gj.launch_shapes.clear()
     t1 = time.perf_counter()
     sol = lt.solve_batch_mixed(data, opts, key=key, n_corrector_iters=6,
                                escalate=1)
@@ -956,30 +1004,44 @@ def main():
         raise AssertionError("card and CPU runs of the port disagree")
     phase("reference", t0, "ok")
 
-    # 6.-8. the PAS paths and the circle path
+    # 6.-8. the PAS paths and the circle paths
+    by_path = {"main": got}
     pas_opts = opts.replace(inner_solver="pas")
     fleet = warmup_fleet(PAS_MIXED_B)
-    run_path("pas-mixed-1024",
+    by_path["pas-mixed-1024"] = run_path("pas-mixed-1024",
              lambda: lt.solve_batch_mixed(fleet, pas_opts, key=key,
                                           n_corrector_iters=6, escalate=0),
              fleet, pas_opts, **PATHS["pas-mixed-1024"])
     fleet = warmup_fleet(PAS_F64_B)
-    run_path("pas-warmup-256",
+    by_path["pas-warmup-256"] = run_path("pas-warmup-256",
              lambda: lt.solve_batch(fleet, pas_opts, key=key), fleet,
              pas_opts, **PATHS["pas-warmup-256"])
     circle_opts = opts.replace(stationarity_tolerance=1e-2,
                                qp_solver=lt.QPSolver.OSQP_SPARSE)
     fleet, x0 = circle_fleet(CIRCLE_B)
-    run_path("circle-N100",
+    by_path["circle-N100"] = run_path("circle-N100",
              lambda: lt.solve_batch_mixed(fleet, circle_opts, x0=x0,
                                           key=key, chunk=CIRCLE_CHUNK,
                                           escalate=3),
              fleet, circle_opts, **PATHS["circle-N100"])
+    fleet, x0 = circle_fleet(CIRCLE20_B, N=CIRCLE20_N)
+    by_path["circle-N20-512"] = run_path(
+        "circle-N20-512",
+        lambda: lt.solve_batch_mixed(fleet, circle_opts, x0=x0, key=key,
+                                     chunk=0, escalate=3),
+        fleet, circle_opts, **PATHS["circle-N20-512"])
 
     # 9. the reference-compatible surface
     run_api(lt, sol, opts, MAIN_EXPECTED["stages"])
 
-    # 10. the Threefry kernel at every other shape the paths launched it at
+    # 10. both kernels at every other shape the paths launched them at
+    t0 = time.perf_counter()
+    driven = sorted(gj.launch_shapes)
+    late = [s for s in driven if s not in KERNEL_SHAPES]
+    for B, m in late:
+        hold_gj(gj, B, m)
+    phase("gj-driven", t0, f"driven_shapes={driven} held_now={late} "
+          f"bitwise=True")
     t0 = time.perf_counter()
     driven = sorted(prng.launch_shapes)
     late = [s for s in driven if s not in THREEFRY_SHAPES]
@@ -991,6 +1053,10 @@ def main():
 
     main_row = rows[(4096, 14)]
     tf_row = tf_rows[(4096, 8, torch.float32)]
+    # Each path's launches, its counts set to 0 just before it.
+    gj_by_path = {k: sum(v["launches_by_m"].values())
+                  for k, v in by_path.items()}
+    tf_by_path = {k: v["threefry_launches"] for k, v in by_path.items()}
     print(json.dumps({"kernels": [{
         "name": "gj_inverse",
         "route": "cuda",
@@ -1004,6 +1070,10 @@ def main():
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": [4096, 14, 14],
+        "launches_by_path": gj_by_path,
+        # The wide design (m = 33-48) at circle-N20-512's shape.
+        "order_42": dict(rows[(CIRCLE20_B, CIRCLE20_NV)],
+                         shape=[CIRCLE20_B, CIRCLE20_NV, CIRCLE20_NV]),
     }, {
         "name": "threefry_perturb_apply",
         "route": "cuda",
@@ -1021,6 +1091,7 @@ def main():
         "host_us": tf_row["host_us"],
         "shape": [4096, 8],
         "dtype": "float32",
+        "launches_by_path": tf_by_path,
     }]}))
     print(f"[total] seconds={time.perf_counter() - t_all:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,10 +54,47 @@
 // the end of the batch run the same instructions on identity rows, inside
 // the full shuffle mask, and store nothing.
 //
-// Orders 33 <= m <= 48 (off the solver's main path) keep the block design
-// (gj_block_kernel): a group of m threads per matrix, floor(256/m) matrices
-// per block staged through shared memory, the pivot row published through
-// shared memory between two block barriers per step.
+// Orders 33 <= m <= 48 (circle-N20-512's 42: OptimizeOnCircle N = 20's
+// predictor inverses, nV = 42): one matrix a warp, two rows a lane
+// (gj_wide_kernel).
+// - What bounds it.  Not bytes: B = 512 matrices at m = 48 move 9.4 MB,
+//   2.8 us at 3.35 TB/s.  The chain of m dependent steps of one warp: each
+//   step is the pivot's shuffle and division, then for each of the m - 1
+//   other columns a shuffle, the scale by r and, in each row slot, a
+//   multiply, a subtract and a select: ~350 issued instructions a step at
+//   m = 42, ~0.3 us a step for a matrix alone.  And the grid's fill: at
+//   B = 512 one warp a matrix gives the card's 528 schedulers about one
+//   warp each, so the time is one warp's chain, not a throughput.  (A
+//   block design with floor(256/m) matrices a block has 103 blocks for
+//   132 SMs at (512, 48) and serializes each step between two block
+//   barriers: 68 us.)
+// - Lane i holds row i in slot a and row 32 + i in slot b; where
+//   32 + i >= m, slot b is a zero row that runs the same instructions
+//   inside the full shuffle mask, is never a pivot and is never stored.
+//   Row k, the pivot of step k, is slot k / 32 of lane k % 32: two loops,
+//   k < 32 and k >= 32, so the slot is a constant in each.
+// - Rows are stored rotated: at step k position p holds column
+//   (k + p) mod m, so the pivot column is always position 0 and a step
+//   moves each result down one position.  Every register index is then a
+//   constant in a loop over k that is not unrolled (two steps a trip).
+//   With k unrolled too the code was ~240 KB a kernel at m = 42 and ran from
+//   instruction fetch: 82 us at (512, 42) with L2 flushed, 46 us warm
+//   (CUDA events).
+// - The sign masks are 64 bits (columns up to 47) and shift with the
+//   rows: bit p is the sign of the zero I[row, k + p], the same IEEE rules
+//   as the warp design's.
+// - No shared memory, no barrier, one warp a block; rows load and store
+//   with 16- or 8-byte accesses where m and the pointers allow.
+// Measured (tools/torch_gj_times.py, in turns with the block design, one
+// process, kernel time by torch.profiler, L2 flushed / warm, NVIDIA H100
+// 80GB HBM3, 700.00 W): (512, 42) 22.0 / 20.6 us against 53.4 / 51.0;
+// (512, 48) 21.7 / 20.1 against 68.0 / 67.0; (4096, 48) 113 / 113
+// against 351 / 351; one matrix (1, 42) 12.9 us against 49.9.  Measured
+// slower (CUDA events, one call each, in turns) and not kept: two
+// matrices over three warps with the pivot row in shared memory under a
+// block barrier (+18-21% at B = 512), the pivot row through warp-private
+// shared memory in place of the shuffles (+6-15%), each step's division
+// started one step ahead (+3-6%), two warps a block (+0-8%).
 
 #include <cuda_runtime.h>
 
@@ -66,7 +103,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 2;  // warps per block
+constexpr int kWarps = 2;  // warps per block of the warp design
 constexpr int kWarpMaxM = 32;
 
 // ---- warp design, 1 <= m <= 32 -------------------------------------------
@@ -190,97 +227,118 @@ cudaError_t launch_warp(const float* S, float* out, int batch,
   return cudaGetLastError();
 }
 
-// ---- block design, 33 <= m <= 48 ------------------------------------------
+// ---- wide design, 33 <= m <= 48 ------------------------------------------
 
-constexpr int kThreads = 256;
-
-// a[k] for a runtime k, without leaving registers (a constant k folds away).
+// A row of M floats moved with the widest access that the row's alignment
+// allows: vec (4, 2 or 1 floats) is chosen once per launch and is the same
+// in every thread, so the branch is uniform.
 template <int M>
-__device__ __forceinline__ float pick(const float (&a)[M], int k) {
-  float out = a[0];
-#pragma unroll
-  for (int j = 1; j < M; ++j) out = (j == k) ? a[j] : out;
-  return out;
-}
-
-// Elimination step k for row i of one matrix; piv holds the group's
-// published pivot row [rowM | rowI].
-template <int M>
-__device__ __forceinline__ void gj_step(float (&a)[M], float (&inv)[M],
-                                        float* piv, int i, int k) {
-  if (i == k) {
-    const float r = 1.0f / pick<M>(a, k);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      a[j] = a[j] * r;
-      inv[j] = inv[j] * r;
-      piv[j] = a[j];
-      piv[M + j] = inv[j];
-    }
+__device__ __forceinline__ void load_row_any(float (&a)[M], const float* row,
+                                             int vec) {
+  if constexpr (M % 4 == 0) {
+    if (vec == 4) return load_row<M, 4>(a, row);
   }
-  __syncthreads();
-  if (i != k) {
-    const float f = pick<M>(a, k);
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      a[j] = a[j] - f * piv[j];
-      inv[j] = inv[j] - f * piv[M + j];
-    }
+  if constexpr (M % 2 == 0) {
+    if (vec >= 2) return load_row<M, 2>(a, row);
   }
-  // The next pivot row must not overwrite this one before every row of the
-  // group has read it.
-  __syncthreads();
+  load_row<M, 1>(a, row);
 }
 
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-gj_block_kernel(const float* __restrict__ S, float* __restrict__ out,
-                int batch) {
-  constexpr int kMats = kThreads / M;  // matrices per block
-  static_assert(kMats * M * M * 4 + kMats * 2 * M * 4 <= 48 * 1024,
-                "static shared memory over 48 KB");
-  __shared__ float tile[kMats * M * M];
-  __shared__ float piv[kMats][2 * M];
+__device__ __forceinline__ void store_row_any(float* row, const float (&a)[M],
+                                              int vec) {
+  if constexpr (M % 4 == 0) {
+    if (vec == 4) return store_row<M, 4>(row, a);
+  }
+  if constexpr (M % 2 == 0) {
+    if (vec >= 2) return store_row<M, 2>(row, a);
+  }
+  store_row<M, 1>(row, a);
+}
 
-  const int tid = threadIdx.x;
-  const int local = tid / M;  // matrix within the block
-  const int i = tid - local * M;  // row within the matrix
-  const long long first = static_cast<long long>(blockIdx.x) * kMats;
-  const long long left = static_cast<long long>(batch) - first;
-  const int nmat = left < kMats ? static_cast<int>(left) : kMats;
-  const long long base = first * M * M;
-  const int nvals = nmat * M * M;
+__device__ __forceinline__ unsigned long long sign_mask64(float x) {
+  return (__float_as_uint(x) >> 31) ? ~0ull : 0ull;
+}
 
-  for (int idx = tid; idx < nvals; idx += kMats * M) tile[idx] = S[base + idx];
-  __syncthreads();
+// Elimination step k of the wide design on lane i's two rows, stored
+// rotated: position p holds column (k + p) mod M, so the pivot column is
+// always position 0 and the step's result shifts down by one position, a
+// register rename with every index a constant in the loop over k, which
+// stays a loop.  The sign masks shift the same way: bit p is the sign of the
+// zero I[row, k + p], for the columns not yet pivoted.  kSlotB: row k is
+// slot b of lane k - 32 (k >= 32), else slot a of lane k.
+template <int M, bool kSlotB>
+__device__ __forceinline__ void wide_step(float (&a)[M], float (&b)[M],
+                                          unsigned long long& na,
+                                          unsigned long long& nb, int i,
+                                          int k) {
+  const int src = kSlotB ? k - 32 : k;
+  const bool pa = !kSlotB && i == k;
+  const bool pb = kSlotB && i == k - 32;
+  const float fa = a[0];
+  const float fb = b[0];
+  const float r = 1.0f / __shfl_sync(kFull, kSlotB ? fb : fa, src);
+#pragma unroll
+  for (int p = 1; p < M; ++p) {
+    const float t = __shfl_sync(kFull, kSlotB ? b[p] : a[p], src) * r;
+    a[p - 1] = pa ? t : a[p] - fa * t;
+    b[p - 1] = pb ? t : b[p] - fb * t;
+  }
+  const unsigned long long nk = __shfl_sync(kFull, kSlotB ? nb : na, src);
+  const unsigned long long sr = sign_mask64(r);
+  const float za = (na & 1ull) ? -0.0f : 0.0f;
+  const float zb = (nb & 1ull) ? -0.0f : 0.0f;
+  a[M - 1] = pa ? r : za - fa * r;
+  b[M - 1] = pb ? r : zb - fb * r;
+  na = (pa ? (nk ^ sr) : (na & ~(nk ^ sr ^ sign_mask64(fa)))) >> 1;
+  nb = (pb ? (nk ^ sr) : (nb & ~(nk ^ sr ^ sign_mask64(fb)))) >> 1;
+}
 
-  const bool valid = local < nmat;
+// One matrix a block of one warp (blockIdx.x is the matrix).
+template <int M>
+__global__ void __launch_bounds__(32)
+gj_wide_kernel(const float* __restrict__ S, float* __restrict__ out,
+               int vec) {
+  static_assert(kWarpMaxM < M && M <= 2 * kWarpMaxM, "two row slots");
+  constexpr int H = M - 32;  // lanes 0 .. H-1 hold a second row
+  const int i = threadIdx.x;
+  const bool two = i < H;
+  const long long base = static_cast<long long>(blockIdx.x) * M * M;
+
+  // a: row i; b: row 32 + i, or a zero row past the matrix (never a pivot
+  // source, never stored).
   float a[M];
-  float inv[M];
+  float b[M];
+  load_row_any<M>(a, S + base + i * M, vec);
+  if (two) {
+    load_row_any<M>(b, S + base + (32 + i) * M, vec);
+  } else {
 #pragma unroll
-  for (int j = 0; j < M; ++j) {
-    const float e = (j == i) ? 1.0f : 0.0f;
-    a[j] = valid ? tile[(local * M + i) * M + j] : e;
-    inv[j] = e;
+    for (int j = 0; j < M; ++j) b[j] = 0.0f;
   }
+  unsigned long long na = 0ull;
+  unsigned long long nb = 0ull;
 
-#pragma unroll 1
-  for (int k = 0; k < M; ++k) gj_step<M>(a, inv, piv[local], i, k);
+  // Two steps a trip, so each step's pivot shuffle and division can
+  // overlap the previous step's last columns.
+#pragma unroll 2
+  for (int k = 0; k < 32; ++k) wide_step<M, false>(a, b, na, nb, i, k);
+#pragma unroll 2
+  for (int k = 32; k < M; ++k) wide_step<M, true>(a, b, na, nb, i, k);
 
-  if (valid) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) tile[(local * M + i) * M + j] = inv[j];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nvals; idx += kMats * M) out[base + idx] = tile[idx];
+  // After M steps of one position each, position p is column p again.
+  store_row_any<M>(out + base + i * M, a, vec);
+  if (two) store_row_any<M>(out + base + (32 + i) * M, b, vec);
 }
 
 template <int M>
-cudaError_t launch_block(const float* S, float* out, int batch,
-                         cudaStream_t stream) {
-  constexpr int kMats = kThreads / M;
-  const int blocks = (batch + kMats - 1) / kMats;
-  gj_block_kernel<M><<<blocks, kMats * M, 0, stream>>>(S, out, batch);
+cudaError_t launch_wide(const float* S, float* out, int batch,
+                        cudaStream_t stream) {
+  const auto addr = reinterpret_cast<std::uintptr_t>(S) |
+                    reinterpret_cast<std::uintptr_t>(out);
+  int vec = natural_vec<M>();
+  while (vec > 1 && addr % (4 * vec) != 0) vec /= 2;
+  gj_wide_kernel<M><<<batch, 32, 0, stream>>>(S, out, vec);
   return cudaGetLastError();
 }
 
@@ -290,7 +348,7 @@ cudaError_t launch(const float* S, float* out, int batch,
   if constexpr (M <= kWarpMaxM) {
     return launch_warp<M>(S, out, batch, stream);
   } else {
-    return launch_block<M>(S, out, batch, stream);
+    return launch_wide<M>(S, out, batch, stream);
   }
 }
 

@@ -12,7 +12,8 @@ that replaces the Pallas TPU kernel ``lcqpow_tpu/ops/pallas_inverse.py``
   the two agree bit for bit on the card.
 * ``launch_count`` counts the kernel's launches (never the plain version's),
   so a run can show that its main path went through the kernel;
-  ``launch_counts`` splits the same launches by matrix order m.
+  ``launch_counts`` splits the same launches by matrix order m and
+  ``launch_shapes`` by (B, m).
 
 No pivoting: the callers pass Jacobi-scaled, regularized SPD matrices and
 refine the result (Newton-Schulz, or the caller's own iterative refinement).
@@ -35,16 +36,19 @@ MAX_M = 48
 launch_count = 0
 #: The same launches by matrix order: m -> launches.
 launch_counts: dict[int, int] = {}
-#: Guards both counts: threads launch the kernel at once
+#: The same launches by batch and order: (B, m) -> launches.
+launch_shapes: dict[tuple[int, int], int] = {}
+#: Guards the counts and shapes: threads launch the kernel at once
 #: (``parallel.solve_batch_sharded``).
 _count_lock = threading.Lock()
 
 
-def _count_launch(m: int) -> None:
+def _count_launch(B: int, m: int) -> None:
     global launch_count
     with _count_lock:
         launch_count += 1
         launch_counts[m] = launch_counts.get(m, 0) + 1
+        launch_shapes[B, m] = launch_shapes.get((B, m), 0) + 1
 
 
 @functools.cache
@@ -111,5 +115,5 @@ def gj_inverse(S: torch.Tensor) -> torch.Tensor:
         err = launch(S.data_ptr(), out.data_ptr(), S.shape[0], m, stream)
     if err != 0:
         raise RuntimeError(f"gj_inverse: kernel launch failed, cudaError {err}")
-    _count_launch(m)
+    _count_launch(S.shape[0], m)
     return out

@@ -123,16 +123,16 @@ def warmup_fleet(B: int, device=None) -> LCQPData:
     return lcqp_from_numpy(fields, device)
 
 
-def circle_fleet(B: int, device=None):
+def circle_fleet(B: int, device=None, N: int = 100):
     """The circle fleet of the JAX package's benchmark
-    (``bench.py:139-154``): ``optimize_on_circle(100)`` tiled to ``B`` lanes,
-    each projecting its own target ``(0.5, -0.6) + 0.05 * N(0, 1)`` from
-    ``default_rng(1)`` and started from its own lifted point.  Returns
-    ``(data, x0)``; assembled in NumPy, moved once."""
+    (``bench.py:139-154``): ``optimize_on_circle(N)`` (the benchmark's N =
+    100) tiled to ``B`` lanes, each projecting its own target ``(0.5, -0.6)
+    + 0.05 * N(0, 1)`` from ``default_rng(1)`` and started from its own
+    lifted point.  Returns ``(data, x0)``; assembled in NumPy, moved once."""
     from .convert import lcqp_from_numpy
 
     rng = np.random.default_rng(1)
-    data, x0 = optimize_on_circle(100, as_numpy=True)
+    data, x0 = optimize_on_circle(N, as_numpy=True)
     W = np.array([[17., -15.], [-15., 17.]])
     refs = np.array([0.5, -0.6]) + 0.05 * rng.normal(size=(B, 2))
     fields = {name: np.tile(np.asarray(getattr(data, name)),

@@ -9,10 +9,10 @@ import chip_smoke
 
 LOG = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115gj_block_kernelILi48EEEvPKfPfi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_115gj_block_kernelILi48EEEvPKfPfi
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0a98d171_13_gj_inverse_cu_f9f6775314gj_wide_kernelILi48EEEvPKfPfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0a98d171_13_gj_inverse_cu_f9f6775314gj_wide_kernelILi48EEEvPKfPfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 127 registers, used 1 barriers, 48000 bytes smem
+ptxas info    : Used 167 registers, used 0 barriers
 ptxas info    : Compile time = 94.783 ms
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114gj_warp_kernelILi14ELi2EEEvPKfPfi' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_114gj_warp_kernelILi14ELi2EEEvPKfPfi
@@ -26,7 +26,7 @@ ptxas info    : Used 46 registers, used 0 barriers, 372 bytes cmem[0]
 
 
 @pytest.mark.parametrize("key,want", [
-    (("gj_block_kernel", 48, 0), [127, 0, 0]),
+    (("gj_wide_kernel", 48, 0), [167, 0, 0]),
     (("gj_warp_kernel", 14, 2), [48, 4, 12]),
 ])
 def test_ptxas_usage_reads_registers_and_spills(key, want):
@@ -35,27 +35,43 @@ def test_ptxas_usage_reads_registers_and_spills(key, want):
     assert ("gj_warp_kernel", 13, 1) not in usage
 
 
+def test_check_wide_ptxas():
+    usage = chip_smoke.ptxas_usage(LOG, (14, 48))
+    chip_smoke.check_wide_ptxas(usage, (14, 48))
+    with pytest.raises(AssertionError, match="no full"):
+        chip_smoke.check_wide_ptxas(usage, (14, 42, 48))
+    spilled = chip_smoke.ptxas_usage(LOG.replace(
+        "0 bytes spill stores", "8 bytes spill stores", 1), (48,))
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_wide_ptxas(spilled, (48,))
+
+
 def test_paths_pin_at_least_the_jax_counts():
     # Each path's pinned outcome certifies at least the JAX package's count
     # (its floor) and accounts for every lane of its fleet.
     lanes = {"pas-mixed-1024": 1024, "pas-warmup-256": 256,
-             "circle-N100": chip_smoke.CIRCLE_B}
+             "circle-N100": chip_smoke.CIRCLE_B,
+             "circle-N20-512": chip_smoke.CIRCLE20_B}
     for name, p in chip_smoke.PATHS.items():
         pinned = p["pinned"]
         assert pinned["certified"] >= p["floor"], name
         by = pinned.get("stages") or pinned["rets"]
         assert sum(by.values()) == lanes[name], name
     # The f64 path never reaches the float32 kernel; the circle's inverses
-    # are all sweeps (n > 48).
+    # are all sweeps (n > 48) at N = 100 and the wide GJ design's order 42
+    # at N = 20.
     assert chip_smoke.PATHS["pas-warmup-256"]["pinned"]["launches_by_m"] == {}
     assert chip_smoke.PATHS["circle-N100"]["pinned"]["launches_by_m"] == {}
-    # Only the circle is audited against a ceiling in place of the strict
+    assert set(chip_smoke.PATHS["circle-N20-512"]["pinned"][
+        "launches_by_m"]) == {chip_smoke.CIRCLE20_NV}
+    # Only the circles are audited against a ceiling in place of the strict
     # audit, and the ceiling is no looser than its certificate's bound
     # 1e-9 (1 + max|Ax|) at max|Ax| = 2.
     ceilings = {name: p.get("audit_ceiling")
                 for name, p in chip_smoke.PATHS.items()}
     assert ceilings == {"pas-mixed-1024": None, "pas-warmup-256": None,
-                        "circle-N100": chip_smoke.CIRCLE_AUDIT_CEILING}
+                        "circle-N100": chip_smoke.CIRCLE_AUDIT_CEILING,
+                        "circle-N20-512": chip_smoke.CIRCLE_AUDIT_CEILING}
     assert chip_smoke.CIRCLE_AUDIT_CEILING <= 3e-9
 
 
@@ -69,6 +85,10 @@ def test_kernel_shapes_cover_every_driven_shape():
                chip_smoke.PATHS["pas-mixed-1024"]["pinned"]["launches_by_m"]}
     # The api phase's one-call mixed path: one matrix at a time.
     driven |= set(chip_smoke.API_SHAPES)
+    # circle-N20-512 at full width, and one lane of a retry.
+    driven |= {(chip_smoke.CIRCLE20_B, m) for m in
+               chip_smoke.PATHS["circle-N20-512"]["pinned"]["launches_by_m"]}
+    driven |= {(1, chip_smoke.CIRCLE20_NV)}
     assert driven <= set(chip_smoke.KERNEL_SHAPES)
     assert len(set(chip_smoke.KERNEL_SHAPES)) == len(chip_smoke.KERNEL_SHAPES)
 
@@ -232,6 +252,8 @@ def test_threefry_shapes_cover_every_driven_shape():
     cs = chip_smoke
     assert warmup_fleet(1, device="cpu").nV == cs.WARMUP_NV
     assert circle_fleet(1, device="cpu")[0].nV == cs.CIRCLE_NV
+    assert circle_fleet(1, device="cpu", N=cs.CIRCLE20_N)[0].nV \
+        == cs.CIRCLE20_NV
     wu, circ = cs.WARMUP_NV, cs.CIRCLE_NV
     driven = {(cs.B_MAIN, wu), (cs.PAS_MIXED_B, wu), (cs.PAS_F64_B, wu),
               (cs.CIRCLE_CHUNK, circ)}

@@ -45,11 +45,13 @@ def _same_bits(K, P):
 
 
 # Every order, at a batch (389, prime) that is a multiple of neither the
-# matrices per warp (floor(32/m), m <= 32) nor the matrices per block, plus
-# the solver's shapes and the largest order.
+# matrices per warp (floor(32/m), m <= 32) nor the warps per block, plus
+# the solver's shapes, the circle-N20-512 path's order 42 (its fleet, a
+# quarter of it and one retried lane) and the largest order.
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,m", [(4096, 8), (4096, 14), (4095, 14),
-                                 (512, 48), (7, 1), (3, 33)]
+                                 (512, 48), (7, 1), (3, 33), (512, 42),
+                                 (128, 42), (1, 42), (4096, 48)]
                          + [(389, m) for m in range(1, 49)])
 def test_gj_kernel_matches_plain_on_card(B, m):
     _card()
@@ -69,7 +71,7 @@ def test_gj_kernel_matches_plain_on_card(B, m):
 # version produce -0 entries that a kernel writing +0 would miss.
 @pytest.mark.gpu
 @pytest.mark.parametrize("negate", [False, True])
-@pytest.mark.parametrize("m", [2, 5, 8, 14, 31, 32, 40])
+@pytest.mark.parametrize("m", [2, 5, 8, 14, 31, 32, 33, 40, 42, 47, 48])
 def test_gj_kernel_keeps_signed_zeros_on_card(m, negate):
     _card()
     S = _scaled_spd(389, m, seed=m, sparse=True, negate=negate).cuda()
@@ -79,9 +81,31 @@ def test_gj_kernel_keeps_signed_zeros_on_card(m, negate):
     assert _same_bits(K, P)
 
 
+# At m > 32 the inverse of a sparse SPD matrix is dense, so the signs of
+# the identity's zeros past column 31 (the wide kernel's mask bits 32-47)
+# reach the result only through structure: -I, and negative definite
+# matrices whose factor keeps 1% of its entries.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [33, 40, 42, 48])
+def test_gj_kernel_keeps_signed_zeros_past_column_31_on_card(m):
+    _card()
+    rng = np.random.default_rng(m)
+    A = rng.normal(size=(388, m, m)) * (rng.random(size=(388, m, m)) < 0.01)
+    S = A @ A.transpose(0, 2, 1) / m + 0.1 * np.eye(m)
+    d = np.sqrt(np.einsum("bii->bi", S))
+    S = -(S / (d[:, :, None] * d[:, None, :])).astype(np.float32)
+    S[(S == 0) & (rng.random(size=S.shape) < 0.5)] = -0.0
+    S = torch.cat([-torch.eye(m)[None], torch.from_numpy(S)]).cuda()
+    K = pgj.gj_inverse(S)
+    P = pgj.gj_inverse_plain(S)
+    torch.cuda.synchronize()
+    assert bool(((P[:, :, 32:] == 0) & torch.signbit(P[:, :, 32:])).any())
+    assert _same_bits(K, P)
+
+
 # Base pointers that allow no vector load (4-byte offset into storage).
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [8, 14, 16])
+@pytest.mark.parametrize("m", [8, 14, 16, 33, 42, 48])
 def test_gj_kernel_on_misaligned_input_on_card(m):
     _card()
     S = _scaled_spd(389, m, seed=m).cuda()
@@ -89,6 +113,20 @@ def test_gj_kernel_on_misaligned_input_on_card(m):
     Sm = flat[1:].view_as(S)
     Sm.copy_(S)
     assert Sm.is_contiguous() and Sm.data_ptr() % 8 == 4
+    assert _same_bits(pgj.gj_inverse(Sm), pgj.gj_inverse_plain(S))
+
+
+# Base pointers 8 bytes past a 16-byte boundary: 8-byte loads only, at
+# orders whose rows would take 16-byte ones.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16, 44, 48])
+def test_gj_kernel_on_8_byte_aligned_input_on_card(m):
+    _card()
+    S = _scaled_spd(389, m, seed=m).cuda()
+    flat = torch.empty(S.numel() + 2, device="cuda")
+    Sm = flat[2:].view_as(S)
+    Sm.copy_(S)
+    assert Sm.is_contiguous() and Sm.data_ptr() % 16 == 8
     assert _same_bits(pgj.gj_inverse(Sm), pgj.gj_inverse_plain(S))
 
 

@@ -188,14 +188,16 @@ def test_gj_launch_counts_keep_every_threaded_update():
     # an unlocked read-modify-write loses updates.
     from lcqpow_tpu_torch.ops import gj_inverse as gj
 
-    saved = gj.launch_count, dict(gj.launch_counts)
+    saved = (gj.launch_count, dict(gj.launch_counts),
+             dict(gj.launch_shapes))
     interval = sys.getswitchinterval()
     gj.launch_count = 0
     gj.launch_counts.clear()
+    gj.launch_shapes.clear()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(target=lambda m=m: [
-            gj._count_launch(m % 3 + 1) for _ in range(4000)])
+            gj._count_launch(m % 2 + 4, m % 3 + 1) for _ in range(4000)])
             for m in range(8)]
         for t in threads:
             t.start()
@@ -204,11 +206,16 @@ def test_gj_launch_counts_keep_every_threaded_update():
         assert not any(t.is_alive() for t in threads)
         assert gj.launch_count == 32000
         assert gj.launch_counts == {1: 12000, 2: 12000, 3: 8000}
+        assert gj.launch_shapes == {(4, 1): 8000, (5, 2): 8000,
+                                    (4, 3): 4000, (5, 1): 4000,
+                                    (4, 2): 4000, (5, 3): 4000}
     finally:
         sys.setswitchinterval(interval)
         gj.launch_count = saved[0]
-        gj.launch_counts.clear()
-        gj.launch_counts.update(saved[1])
+        for now, then in zip((gj.launch_counts, gj.launch_shapes),
+                             saved[1:]):
+            now.clear()
+            now.update(then)
 
 
 _WORKER = textwrap.dedent(r"""
