@@ -1,0 +1,131 @@
+"""The harness: cells, mixes and metrics found by name; the rate over
+whole calls; the result line's shape."""
+
+import json
+import time
+
+import pytest
+import torch
+
+from benchmark import harness
+
+
+def run(spec, bench, workload="warmup-sweep", seconds=0.0, trace=False,
+        seed=2 ** 31 + 5):
+    return harness.run(spec, workload, seed, seconds, trace, "cpu",
+                       time.perf_counter(), bench_dir=bench)
+
+
+def test_spec_names_a_reader_for_every_metric_and_files_for_every_cell():
+    spec = json.loads((harness.BENCH_DIR.parent / "BENCHMARK.json")
+                      .read_text())
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        assert hasattr(harness.load_reader(m["name"]), "read")
+    for w in spec["workloads"]:
+        cell = harness.load_cell(harness.BENCH_DIR.parent / "BENCHMARK.json",
+                                 w["name"])
+        assert cell.traffic["lanes_per_call"] > 0
+        assert set(harness.limits(cell.config)) == {
+            "stationarity", "complementarity", "feasibility",
+            "uncertified_pct"}
+
+
+def test_added_config_traffic_and_metric_are_found_by_name(tiny_spec):
+    spec_path, bench = tiny_spec
+    spec = json.loads(spec_path.read_text())
+    cfg = json.loads((bench / "configs" / "warmup-admm.json").read_text())
+    cfg.update(name="warmup-small")
+    cfg["problem"].update(base_instances=16)
+    (bench / "configs" / "warmup-small.json").write_text(json.dumps(cfg))
+    (bench / "traffic" / "tiny-32.json").write_text(json.dumps(
+        {"name": "tiny-32", "lanes_per_call": 32}))
+    (bench / "metrics" / "lanes_per_call.py").write_text(
+        "def read(ctx):\n    return ctx.lanes\n")
+    spec["configs"].append(dict(spec["configs"][0], name="warmup-small",
+                                file="bench/configs/warmup-small.json"))
+    spec["workloads"].append({"name": "small", "config": "warmup-small",
+                              "traffic": "tiny-32", "chips": 1, "why": "t"})
+    spec["per_layer"].append({"name": "lanes_per_call", "unit": "lanes",
+                              "better": "higher", "source": "program_counter",
+                              "layer": "entry", "moves": "certified_per_s",
+                              "workloads": ["small"]})
+    spec_path.write_text(json.dumps(spec))
+    result = run(spec_path, bench, "small", trace=True)
+    assert result["metrics"]["lanes_per_call"]["value"] == 32
+    assert result["attempted"] == 32 and result["correct"]
+    result = run(spec_path, bench, "warmup-sweep", trace=True)
+    assert "lanes_per_call" not in result["metrics"]
+
+
+def test_rate_is_certified_lanes_of_whole_calls_over_the_window(
+        tiny_spec, monkeypatch):
+    spec_path, bench = tiny_spec
+    pause = 0.15
+    orig = harness.Program.__call__
+
+    def slow(self, g):
+        sol = orig(self, g)
+        time.sleep(pause)
+        return sol
+
+    monkeypatch.setattr(harness.Program, "__call__", slow)
+    result = run(spec_path, bench, seconds=1.5)
+    calls = result["attempted"] // 64
+    certified = result["attempted"] - result["failed"]
+    rate = result["metrics"]["certified_per_s"]["value"]
+    assert calls >= 2
+    # Every call of the window counts, the last one whole: the window
+    # ends after the last call, so it lasts at least `seconds` and the
+    # rate covers every lane solved in it.
+    window = certified / rate
+    assert window >= 1.5
+    assert window >= calls * pause
+    assert set(result["metrics"]) == {"certified_per_s", "setup_s"}
+    assert list(result)[-1] == "checks"
+    assert {"correct", "attempted", "failed", "metrics", "device"} \
+        <= set(result)
+    assert set(result["device"]) >= {"platform", "kind", "count",
+                                     "memory_peak_bytes"}
+
+
+def test_traced_run_reads_per_layer_metrics_and_restores_the_program(
+        tiny_spec):
+    import lcqpow_tpu_torch.mixed as mixed
+    import lcqpow_tpu_torch.ops.chol as chol
+    import lcqpow_tpu_torch.prng as prng
+    import lcqpow_tpu_torch.solvers.admm as admm
+
+    spec_path, bench = tiny_spec
+    wrapped = (chol.gj_inverse, prng.perturbation, mixed.solve,
+               mixed.correct_and_certify, admm._polish_solve)
+    result = run(spec_path, bench, "pas-sweep", seconds=60.0, trace=True)
+    assert (chol.gj_inverse, prng.perturbation, mixed.solve,
+            mixed.correct_and_certify, admm._polish_solve) == wrapped
+    assert result["attempted"] == harness.TRACE_CALLS * 64
+    m = result["metrics"]
+    for name in ("call_s_p50", "iter_total_mean", "subproblem_iter_mean",
+                 "corrector_steps_mean"):
+        assert m[name]["value"] > 0
+    # No card: no device operation to read, so the device's metrics are
+    # left out, never reported as 0.
+    for name in ("device_idle_pct", "gj_inverse_roofline",
+                 "perturb_apply_roofline", "kernel_launches_per_call",
+                 "predictor_device_pct", "kkt_solve_device_pct",
+                 "corrector_device_pct"):
+        assert name not in m
+    assert result["device"]["busy_s"] == 0
+    assert len(result["breakdown"]["idle_gaps"]) <= 10
+
+
+def test_run_refuses_without_a_card(tmp_path):
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    p = subprocess.run([sys.executable, str(harness.BENCH_DIR / "run.py"),
+                        "--workload", "warmup-sweep", "--seed", "1",
+                        "--seconds", "1", "--trace", "0"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=tmp_path)
+    assert p.returncode != 0 and p.stdout.strip() == ""
