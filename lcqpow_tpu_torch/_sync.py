@@ -6,8 +6,13 @@ threads that run op-by-op loops at once hand the GIL to one another on
 every op, and every hand-over wakes a sleeping thread: such threads run
 several times slower than the same loops one after another.  A thread that
 solves holding a :class:`Baton` runs its Python alone, and hands the baton
-over only at a host sync (:func:`any_`), where it waits for its device
-anyway, and only once it has held the baton for a time slice.
+over only at a host sync (:func:`any_`, :func:`nonzero`), where it waits
+for its device anyway, and only once it has held the baton for a time
+slice.
+
+Every host wait of the solve goes through here and is counted in
+``sync_count``; the solve makes its scalars on the device by fills, so it
+copies nothing from the host, which would wait too.
 """
 
 from __future__ import annotations
@@ -21,6 +26,13 @@ from typing import Optional
 import torch
 
 _local = threading.local()
+
+#: Host waits for the device (:func:`any_`, :func:`nonzero`) in this
+#: process.
+sync_count = 0
+#: Guards the count: threads solve at once
+#: (``parallel.solve_batch_sharded``).
+_count_lock = threading.Lock()
 
 
 class Baton:
@@ -43,16 +55,30 @@ class Baton:
                 _local.baton = None
 
 
-def any_(t: torch.Tensor) -> bool:
-    """``bool(t.any())``: the host waits for the device.  A thread that has
+def _wait(read):
+    """``read()``, which waits for the device, counted; a thread that has
     held its :class:`Baton` for its time slice waits without it."""
-    flag = t.any()
+    global sync_count
+    with _count_lock:
+        sync_count += 1
     baton = getattr(_local, "baton", None)
     if baton is None or time.perf_counter() - _local.since < baton.hold_s:
-        return bool(flag)
+        return read()
     baton.lock.release()
     try:
-        return bool(flag)
+        return read()
     finally:
         baton.lock.acquire()
         _local.since = time.perf_counter()
+
+
+def any_(t: torch.Tensor) -> bool:
+    """``bool(t.any())``: the host waits for the device."""
+    flag = t.any()
+    return _wait(lambda: bool(flag))
+
+
+def nonzero(t: torch.Tensor) -> torch.Tensor:
+    """``torch.nonzero(t).flatten()``: the host waits for the device to
+    learn how many there are."""
+    return _wait(lambda: torch.nonzero(t).flatten())

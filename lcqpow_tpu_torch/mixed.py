@@ -34,6 +34,8 @@ import torch
 import torch.distributed as dist
 
 from . import prng
+from ._sync import any_, nonzero
+from ._trace import span
 from .constants import INFTY
 from .data import LCQPData
 from .ops import df32
@@ -157,7 +159,7 @@ def correct_and_certify(data: LCQPData, options: Options,
     l32, u32 = l_df.hi, u_df.hi
     eq = (u_int64 - l_int64) < 1e-12
     # Compare against the f32-cast INFTY (float32(1e20) rounds up).
-    inf32 = torch.tensor(INFTY, dtype=_F32, device=dev)
+    inf32 = torch.full((), INFTY, dtype=_F32, device=dev)
     has_l = l32 > -inf32
     has_u = u32 < inf32
     zero = torch.zeros((), dtype=_F32, device=dev)
@@ -171,8 +173,8 @@ def correct_and_certify(data: LCQPData, options: Options,
     use_range = options.admm.kkt_form == "range" and m > n
     k_cap = compression_cap(n, m)
     if use_range:
-        d_pen = torch.sqrt(torch.tensor(_DELTA_P, dtype=_F32, device=dev)
-                           / torch.tensor(eps32, dtype=_F32, device=dev))
+        d_pen = torch.sqrt(torch.full((), _DELTA_P, dtype=_F32, device=dev)
+                           / torch.full((), eps32, dtype=_F32, device=dev))
     else:
         Pinv = spd_inverse(Qs + _DELTA_P * eye(n, Qs))
         Hfull = As_sc @ (Pinv @ As_sc.mT)
@@ -245,7 +247,7 @@ def correct_and_certify(data: LCQPData, options: Options,
             dmf = d_pen * mf
             K = Qs + (As_sc * dmf[:, :, None]).mT @ As_sc
             regK = torch.maximum(
-                torch.tensor(_DELTA_P, dtype=_F32, device=dev),
+                torch.full((), _DELTA_P, dtype=_F32, device=dev),
                 8.0 * eps32 * torch.diagonal(K, dim1=-2, dim2=-1))
             Kinv = spd_inverse_light(K + torch.diag_embed(regK))
 
@@ -309,7 +311,7 @@ def correct_and_certify(data: LCQPData, options: Options,
         # the residual shrank by at least 10% and the budget lasts.
         while True:
             run = active & (k < _REFINE_STEPS + 1) & (res < 0.9 * res_prev)
-            if not bool(run.any()):
+            if not any_(run):
                 break
             r1 = df32.add(df32.sub(Qx_df(xp),
                                    df32.split_matvec_t(Ghi, Glo, nu)), gk)
@@ -373,7 +375,7 @@ def correct_and_certify(data: LCQPData, options: Options,
 
     while True:
         run = ~done
-        if not bool(run.any()):
+        if not any_(run):
             break
         stat_norm, phi_val = stat_phi(x, y, rho32, upd)
         viol, ax_scale = primal_violation(x)
@@ -394,7 +396,7 @@ def correct_and_certify(data: LCQPData, options: Options,
 
         go = run & ~done_n
         x_n, y_n, trust_n = x, y, trust
-        if bool(go.any()):
+        if any_(go):
             gk = df32.add(df32.mul_f32(Cx_df(x), rho32_n[:, None]),
                           g_tilde_df(rho32_n, upd_n))
             xn, yn, xf, yf, res0, resN = kkt_solve_pass(x, y, gk, trust, go)
@@ -550,16 +552,20 @@ def solve_mixed(data: LCQPData, options: Options = Options(),
     options = _resolve_kkt_form(data, options)
     data32 = data.map(lambda a: a.to(_F32))
     m_rows = data.nC + 2 * data.nComp + data.nV
-    pred = solve(data32, _predictor_options(options, m_rows),
-                 x0=None if x0 is None else x0.to(_F32),
-                 y0=None if y0 is None else y0.to(_F32),
-                 key=key)
+    with span("predictor"):
+        pred = solve(data32, _predictor_options(options, m_rows),
+                     x0=None if x0 is None else x0.to(_F32),
+                     y0=None if y0 is None else y0.to(_F32),
+                     key=key)
 
-    x, y_out, ret, algo, rho_opt, corr_steps, stage = correct_and_certify(
-        data.map(lambda a: a.to(torch.float64)), options,
-        pred.x, pred.y, pred.stats.rho_opt, pred.stats.iter_outer > 0,
-        pred.ret, pred.stats.qp_exit_flag,
-        n_corrector_iters=n_corrector_iters)
+    data64 = data.map(lambda a: a.to(torch.float64))
+    updated = pred.stats.iter_outer > 0
+    with span("corrector"):
+        x, y_out, ret, algo, rho_opt, corr_steps, stage = \
+            correct_and_certify(data64, options, pred.x, pred.y,
+                                pred.stats.rho_opt, updated, pred.ret,
+                                pred.stats.qp_exit_flag,
+                                n_corrector_iters=n_corrector_iters)
 
     stats = Stats(
         iter_total=pred.stats.iter_total,
@@ -612,26 +618,27 @@ def solve_batch_mixed(data: LCQPData, options: Options = Options(),
     full-width one draws."""
     from .batch import chunked_call
 
-    options = options.replace(print_level=PrintLevel.NONE)
-    options = _resolve_kkt_form(data, options)
-    batch = data.Q.shape[0]
-    key = prng.root_key(key, options.seed, data.Q.device)
-    keys = prng.fleet_keys(key, options.seed, batch, data.Q.device)
-    if chunk is None:
-        chunk = auto_chunk(batch, data.nC + 2 * data.nComp + data.nV)
+    with span("call"):
+        options = options.replace(print_level=PrintLevel.NONE)
+        options = _resolve_kkt_form(data, options)
+        batch = data.Q.shape[0]
+        key = prng.root_key(key, options.seed, data.Q.device)
+        keys = prng.fleet_keys(key, options.seed, batch, data.Q.device)
+        if chunk is None:
+            chunk = auto_chunk(batch, data.nC + 2 * data.nComp + data.nV)
 
-    def fn(d, k, x, y):
-        return solve_mixed(d, options, x0=x, y0=y, key=k,
-                           n_corrector_iters=n_corrector_iters)
+        def fn(d, k, x, y):
+            return solve_mixed(d, options, x0=x, y0=y, key=k,
+                               n_corrector_iters=n_corrector_iters)
 
-    if chunk is not None and 0 < chunk <= batch:
-        sol = chunked_call(fn, (data, keys, x0, y0), batch, chunk)
-    else:
-        sol = fn(data, keys, x0, y0)
-    if escalate > 0:
-        sol = _escalate_failed(sol, data, options, x0, y0, key,
-                               n_corrector_iters, escalate, chunk=chunk)
-    return sol
+        if chunk is not None and 0 < chunk <= batch:
+            sol = chunked_call(fn, (data, keys, x0, y0), batch, chunk)
+        else:
+            sol = fn(data, keys, x0, y0)
+        if escalate > 0:
+            sol = _escalate_failed(sol, data, options, x0, y0, key,
+                                   n_corrector_iters, escalate, chunk=chunk)
+        return sol
 
 
 def _merge_retry(sol: Solution, retry: Solution, round_idx: int) -> Solution:
@@ -677,29 +684,31 @@ def _escalate_failed(sol: Solution, data: LCQPData, options: Options,
     process does.  That costs a retry of the failed lanes only, needs no
     collective (ranks may take different numbers of rounds), and gives each
     rank the result of a one-process solve of its lanes."""
-    bad = torch.nonzero(sol.ret != _SUCCESS).flatten()
+    bad = nonzero(sol.ret != _SUCCESS)
     for r in range(rounds):
         if bad.numel() == 0:
             break
-        take = lambda a: a.index_select(0, bad)
-        sub = data.map(take)
-        sx0 = None if x0 is None else take(x0)
-        sy0 = None if y0 is None else take(y0)
-        rbudget = max(25, max(1, n_corrector_iters) * (2 if r == 0 else 1))
-        ropts = options
-        if r >= 1:
-            sx0 = torch.nan_to_num(take(sol.x))
-        if r >= 2:
+        with span("escalate"):
+            take = lambda a: a.index_select(0, bad)
+            sub = data.map(take)
             sx0 = None if x0 is None else take(x0)
-            ropts = options.replace(admm=dataclasses.replace(
-                options.admm, adaptive_rho=True))
-        retry = solve_batch_mixed(sub, ropts, x0=sx0, y0=sy0,
-                                  key=prng.fold_in(key, r + 1),
-                                  n_corrector_iters=rbudget, escalate=0,
-                                  chunk=None if chunk is None
-                                  else min(chunk, RETRY_CHUNK))
-        full = sol.map(lambda a, b: a.index_copy(0, bad, b.to(a.dtype)),
-                       retry)
-        sol = _merge_retry(sol, full, r)
-        bad = bad[retry.ret != _SUCCESS]
+            sy0 = None if y0 is None else take(y0)
+            rbudget = max(25,
+                          max(1, n_corrector_iters) * (2 if r == 0 else 1))
+            ropts = options
+            if r >= 1:
+                sx0 = torch.nan_to_num(take(sol.x))
+            if r >= 2:
+                sx0 = None if x0 is None else take(x0)
+                ropts = options.replace(admm=dataclasses.replace(
+                    options.admm, adaptive_rho=True))
+            retry = solve_batch_mixed(sub, ropts, x0=sx0, y0=sy0,
+                                      key=prng.fold_in(key, r + 1),
+                                      n_corrector_iters=rbudget, escalate=0,
+                                      chunk=None if chunk is None
+                                      else min(chunk, RETRY_CHUNK))
+            full = sol.map(lambda a, b: a.index_copy(0, bad, b.to(a.dtype)),
+                           retry)
+            sol = _merge_retry(sol, full, r)
+            bad = bad[nonzero(retry.ret != _SUCCESS)]
     return sol

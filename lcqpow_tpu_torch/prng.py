@@ -101,8 +101,8 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
         raise OverflowError(f"seed {seed} does not fit in int64")
     seed &= 2 ** 64 - 1
     key = torch.empty(2, dtype=torch.int64, device=device)
-    key[0] = seed >> 32
-    key[1] = seed & MASK
+    key[0].fill_(seed >> 32)
+    key[1].fill_(seed & MASK)
     return key
 
 

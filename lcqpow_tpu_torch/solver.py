@@ -40,6 +40,7 @@ import torch
 
 from . import prng
 from ._sync import any_
+from ._trace import span
 from .data import LCQPData
 from .ops.linalg import absmax, eye, lane_where, mtv, mv
 from .options import Options
@@ -241,7 +242,8 @@ def solve(data: LCQPData, options: Options = Options(),
         return status <= 0
 
     inner_solve = _INNER_ENGINES[options.inner_solver]
-    res0 = inner_solve(ws, gk0, st0, cfg)
+    with span("inner_qp"):
+        res0 = inner_solve(ws, gk0, st0, cfg)
     yk_full0 = -res0.y
     init_failed = qp_failed(res0.status)
 
@@ -415,7 +417,8 @@ def solve(data: LCQPData, options: Options = Options(),
         go = run & ~done
         gk2 = rho[:, None] * mv(data.C, xk) + g_tilde
         st = admm.ADMMState(c["st_x"], c["st_z"], c["st_y"])
-        res = inner_solve(ws, gk2, st, cfg, active=go)
+        with span("inner_qp"):
+            res = inner_solve(ws, gk2, st, cfg, active=go)
         pt_ok = torch.isfinite(res.x).all(-1) & torch.isfinite(res.y).all(-1)
         xnew = lane_where(pt_ok, res.x, xk)
         yk_new = lane_where(pt_ok, -res.y, yk)

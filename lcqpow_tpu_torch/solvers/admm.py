@@ -281,14 +281,14 @@ def _polish_solve(ws: QPWorkspace, q, low, up, cfg: ADMMOptions):
     b = torch.where(low, ws.ls, torch.where(up, ws.us, zero))
     b = b.clamp(-INFTY, INFTY) * mf
     G = ws.As * mf[:, :, None]
-    eps_w = torch.tensor(torch.finfo(dtype).eps, dtype=dtype,
-                         device=mf.device)
+    eps_w = torch.full((), torch.finfo(dtype).eps, dtype=dtype,
+                       device=mf.device)
 
     if cfg.kkt_form == "range" and m > n:
         dP = cfg.polish_precond_delta
         if dP is None:
             dP = cfg.polish_delta
-        sig = torch.tensor(dP, dtype=dtype, device=mf.device)
+        sig = torch.full((), dP, dtype=dtype, device=mf.device)
         dmf = torch.sqrt(sig / eps_w) * mf
         K = ws.Ps + (ws.As * dmf[:, :, None]).mT @ ws.As
         reg = torch.maximum(sig, 8.0 * eps_w
@@ -441,7 +441,7 @@ def solve(ws: QPWorkspace, q, state: ADMMState, cfg: ADMMOptions,
     c = ws.c[:, None]
     qs = c * ws.D * q
     sigma = cfg.sigma
-    alpha = torch.tensor(cfg.alpha, dtype=dtype, device=q.device)
+    alpha = torch.full((), cfg.alpha, dtype=dtype, device=q.device)
     K = int(cfg.check_interval)
     if active is None:
         active = torch.ones(B, dtype=torch.bool, device=q.device)
