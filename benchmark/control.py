@@ -26,12 +26,27 @@ With ``--gaps`` each program run also measures how far the float64
 residual that the reference takes lies from the certificate's double-word
 f32 one (:func:`certificate_gaps`), the rounding that
 ``reference.DF32_ROUNDING`` has to cover.
+
+    python3 benchmark/control.py --workload <name> --seeds 1,2,3 --flips
+
+``--flips`` measures instead how many lanes change certification when
+only the order or the precision of the sums of the program's batched
+matvec changes (:data:`MATVECS`): for each seed, over the fleets of a
+run's ``harness.JUDGED_CALLS`` judged calls, the program and then each
+variant, with ``ops.linalg``'s ``mv`` and ``mtv`` swapped at run time in
+every module of the program that binds them (:data:`MATVEC_USERS`) and
+put back afterwards.  One JSON line a seed and side: the lanes left
+uncertified, the lanes certified by one side only, each way, and the
+reference's verdict.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
+import importlib
 import json
 import sys
 import time
@@ -152,6 +167,106 @@ def certificate_gaps(program: harness.Program, g: torch.Tensor, sol,
     return out
 
 
+# ---- the flip control --------------------------------------------------------
+#: Modules of the program that bind ``ops.linalg.mv`` and ``mtv`` by name.
+MATVEC_USERS = ("lcqpow_tpu_torch.ops.linalg", "lcqpow_tpu_torch.ops.df32",
+                "lcqpow_tpu_torch.solver", "lcqpow_tpu_torch.mixed",
+                "lcqpow_tpu_torch.solvers.admm",
+                "lcqpow_tpu_torch.solvers.pas")
+
+
+def _mv_reordered(A, x):
+    """``A @ x``: products rounded to the operands' type, summed over k
+    in reversed order by ``torch.sum`` (cuBLAS gemv fuses each product
+    into its sum, in an order of its own)."""
+    return (A * x.unsqueeze(-2)).flip(-1).sum(-1)
+
+
+def _mtv_reordered(A, y):
+    """``A' @ y`` as :func:`_mv_reordered`."""
+    return (A * y.unsqueeze(-1)).flip(-2).sum(-2)
+
+
+def _mv_f64acc(A, x):
+    """``A @ x``: products and sums in float64, rounded once to the
+    operands' type."""
+    return (A.double() @ x.double().unsqueeze(-1)).squeeze(-1).to(A.dtype)
+
+
+def _mtv_f64acc(A, y):
+    """``A' @ y`` as :func:`_mv_f64acc`."""
+    return (y.double().unsqueeze(-2) @ A.double()).squeeze(-2).to(A.dtype)
+
+
+#: name -> (mv, mtv) of each variant of the matvec.
+MATVECS = {"mv_reordered": (_mv_reordered, _mtv_reordered),
+           "mv_f64acc": (_mv_f64acc, _mtv_f64acc)}
+
+
+@contextlib.contextmanager
+def matvec_swapped(mv, mtv):
+    """``mv`` and ``mtv`` in place of the program's in every module of
+    :data:`MATVEC_USERS` that binds them, the program's put back on
+    exit."""
+    undo = []
+    try:
+        for name in MATVEC_USERS:
+            mod = importlib.import_module(name)
+            for attr, fn in (("mv", mv), ("mtv", mtv)):
+                if attr in vars(mod):
+                    undo.append((mod, attr, getattr(mod, attr)))
+                    setattr(mod, attr, fn)
+        yield
+    finally:
+        for mod, attr, orig in reversed(undo):
+            setattr(mod, attr, orig)
+
+
+def flips(cell: harness.Cell, seed: int, device) -> list[dict]:
+    """The program's outcome on the fleets of a run's judged calls at
+    ``seed``, and each variant of :data:`MATVECS` against it lane by
+    lane; each side judged by the reference as a run judges it."""
+    fleet = Fleet(cell.config["problem"], cell.traffic["lanes_per_call"],
+                  seed, device)
+    program = harness.Program(cell.config["solver"], fleet)
+    guarantees = cell.config["guarantees"]
+    limits = harness.limits(cell.config)
+    calls = range(1, harness.JUDGED_CALLS + 1)
+
+    def side(name):
+        t0 = time.perf_counter()
+        certified, readings, digest = [], [], hashlib.sha256()
+        for call in calls:
+            g = fleet.g(call)
+            sol = program(g)
+            certified.append(sol.ret == 0)
+            digest.update(sol.ret.cpu().numpy().tobytes())
+            readings.append(reference.check_call(fleet, g, sol.x, sol.y,
+                                                 sol.ret, guarantees))
+        numbers = reference.combine(readings)
+        numbers.update(
+            variant=name, seed=seed, calls=len(calls),
+            uncertified=numbers["lanes"] - numbers["certified"],
+            ret_sha256=digest.hexdigest()[:16],
+            seconds=time.perf_counter() - t0,
+            correct=all(numbers[k] <= v for k, v in limits.items()))
+        return numbers, certified
+
+    base, base_cert = side("program")
+    out = [base]
+    for name, (mv, mtv) in MATVECS.items():
+        with matvec_swapped(mv, mtv):
+            got, cert = side(name)
+        got.update(
+            uncertified_program=base["uncertified"],
+            certified_by_program_only=sum(int((b & ~c).sum())
+                                          for b, c in zip(base_cert, cert)),
+            certified_by_variant_only=sum(int((c & ~b).sum())
+                                          for b, c in zip(base_cert, cert)))
+        out.append(got)
+    return out
+
+
 def read(cell: harness.Cell, seed: int, name: str, calls: int,
          device, gaps: bool = False) -> dict:
     """Readings of ``calls`` calls of variant ``name`` on the fleet of
@@ -190,9 +305,15 @@ def main(argv=None) -> int:
     ap.add_argument("--calls", type=int, default=2)
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--gaps", action="store_true")
+    ap.add_argument("--flips", action="store_true")
     args = ap.parse_args(argv)
     root = Path(__file__).resolve().parent.parent
     cell = harness.load_cell(root / "BENCHMARK.json", args.workload)
+    if args.flips:
+        for s in args.seeds.split(","):
+            for line in flips(cell, int(s), args.device):
+                print(json.dumps(line), flush=True)
+        return 0
     runs = [("program", int(s)) for s in args.program_seeds.split(",") if s]
     runs += [(v, int(s)) for s in args.seeds.split(",") if s
              for v in ("f32_predictor", "no_corrector")]

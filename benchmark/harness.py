@@ -10,19 +10,27 @@ cell, a mix or a metric adds files and entries and edits none.
 
 The window calls the program's entry back to back, each call on a fresh
 fleet (:class:`fleet.Fleet`) and ending in a device synchronisation, until
-``seconds`` have passed, and lets the last call finish.  With ``trace`` the
-window is at most ``TRACE_CALLS`` calls under the profiler, with a
-``record_function`` range around each call and around each entry into the
-program that a metric names (``SPANS``), and the per-layer metrics are
-read from those calls.  Once the window has closed and the peak memory has
-been read, the program's state is freed and :mod:`reference` judges every
-call's result.
+``seconds`` have passed and at least ``JUDGED_CALLS`` calls have been made,
+and lets the last call finish.  With ``trace`` the window is at most
+``TRACE_CALLS`` calls under the profiler, with a ``record_function`` range
+around each call and around each entry into the program that a metric
+names (``SPANS``), and the per-layer metrics are read from those calls.
+Once the window has closed and the peak memory has been read, the
+program's state is freed and :mod:`reference` judges every call's result.
+
+Which calls each number covers: ``correct`` and every number under
+``checks``, the end-to-end rate and the per-layer metrics cover every call
+of the window; ``attempted`` and ``failed`` cover its first
+``JUDGED_CALLS`` calls (all of a traced window's), so that two trees run
+at one seed are counted on the same inputs however many calls each fits
+into the window.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -42,6 +50,12 @@ BENCH_DIR = Path(__file__).resolve().parent
 #: Calls of a traced window: enough for a median, few enough that the
 #: trace of the slowest cell is read in well under a minute.
 TRACE_CALLS = 3
+#: Calls whose lanes ``attempted`` and ``failed`` count: a fixed prefix of
+#: every window, so that a faster tree is counted on the same fleets as a
+#: slower one at the same seed, not on extra fleets only it reached.  A
+#: 51-s window at 262,144 lanes holds 13-15 calls; an untraced window runs
+#: on until it has made this many.
+JUDGED_CALLS = 12
 #: Top-level module names that no run may load.
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "lcqpow_tpu"})
 
@@ -252,7 +266,12 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
         log=sys.stderr) -> dict:
     """One run; returns the result line's object, whose last key,
     ``checks``, holds each number compared beside its limit.  ``t0``: the
-    process's start on the host clock, from which set-up is counted."""
+    process's start on the host clock, from which set-up is counted.
+
+    ``correct``, ``checks`` and the metrics cover every call of the window;
+    ``attempted`` and ``failed`` the lanes, and the lanes left uncertified,
+    of its first ``JUDGED_CALLS`` calls.  Standard error gives both counts
+    and a digest of the judged calls' ``ret``."""
     device = torch.device(device)
     cell = load_cell(spec_path, workload, bench_dir)
     metrics = cell.per_layer if trace else cell.end_to_end
@@ -303,8 +322,10 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
                             None if before[k] is None
                             else after[k] - before[k])
                 call += 1
-                if end - start >= seconds or (trace and
-                                              len(walls) >= TRACE_CALLS):
+                if trace:
+                    if end - start >= seconds or len(walls) >= TRACE_CALLS:
+                        break
+                elif end - start >= seconds and len(walls) >= JUDGED_CALLS:
                     break
     finally:
         if restore is not None:
@@ -344,7 +365,15 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
                                      cfg["guarantees"])
                 for c, x, y, ret in results]
     numbers = reference.combine(readings)
-    print(f"[{workload}] reference: {numbers['certified']} of "
+    judged = reference.combine(readings[:JUDGED_CALLS])
+    digest = hashlib.sha256()
+    for r in results[:JUDGED_CALLS]:
+        digest.update(r[3].cpu().numpy().tobytes())
+    print(f"[{workload}] judged calls 1-{min(JUDGED_CALLS, len(results))}"
+          f" of {len(results)}: {judged['lanes'] - judged['certified']} of "
+          f"{judged['lanes']} lanes uncertified, ret sha256 "
+          f"{digest.hexdigest()[:16]}", file=log, flush=True)
+    print(f"[{workload}] reference, every call: {numbers['certified']} of "
           f"{numbers['lanes']} lanes certified; plain stationarity ratio "
           f"{numbers['stationarity_raw']!r}; worst dual on an inactive "
           f"constraint {numbers['inadmissible']!r} of the stationarity "
@@ -353,8 +382,8 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
     checks = {k: {"value": numbers[k], "limit": v}
               for k, v in limits(cfg).items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
-    result = dict(correct=correct, attempted=numbers["lanes"],
-                  failed=numbers["lanes"] - numbers["certified"],
+    result = dict(correct=correct, attempted=judged["lanes"],
+                  failed=judged["lanes"] - judged["certified"],
                   metrics=values, device=device_info)
     if breakdown is not None:
         result["breakdown"] = breakdown

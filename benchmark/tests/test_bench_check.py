@@ -173,3 +173,62 @@ def test_a_multiplier_of_the_wrong_sign_is_not_admitted(tiny_spec):
     assert got["complementarity"] == good["complementarity"]
     assert got["feasibility"] == good["feasibility"]
     assert got["stationarity"] > 1e6 and got["inadmissible"] > 1e6
+
+
+@pytest.mark.parametrize("name", sorted(control.MATVECS))
+def test_matvec_variants_change_only_the_rounding(name):
+    mv, mtv = control.MATVECS[name]
+    gen = torch.Generator().manual_seed(5)
+    A = torch.randn(32, 14, 8, generator=gen)
+    x = torch.randn(32, 8, generator=gen)
+    y = torch.randn(32, 14, generator=gen)
+    exact = (A.double() @ x.double()[..., None])[..., 0]
+    exact_t = (A.double().mT @ y.double()[..., None])[..., 0]
+    got, got_t = mv(A, x), mtv(A, y)
+    assert got.dtype == got_t.dtype == torch.float32
+    if name == "mv_f64acc":
+        assert torch.equal(got, exact.float())
+        assert torch.equal(got_t, exact_t.float())
+    else:
+        eps = torch.finfo(torch.float32).eps
+        bound = 14 * eps * (A.abs().double() @ x.abs().double()[..., None])[
+            ..., 0]
+        assert ((got.double() - exact).abs() <= bound).all()
+        bound_t = 14 * eps * (A.abs().double().mT
+                              @ y.abs().double()[..., None])[..., 0]
+        assert ((got_t.double() - exact_t).abs() <= bound_t).all()
+
+
+def test_flip_control_swaps_every_matvec_binding_and_puts_it_back(
+        tiny_spec):
+    import importlib
+    import sys
+
+    from lcqpow_tpu_torch.ops import linalg
+
+    mods = [importlib.import_module(n) for n in control.MATVEC_USERS]
+    # No other module of the program binds the matvec the control swaps.
+    bound = {n for n, m in list(sys.modules.items())
+             if m is not None and n.split(".")[0] == "lcqpow_tpu_torch"
+             and any(vars(m).get(a) is getattr(linalg, a)
+                     for a in ("mv", "mtv"))}
+    assert bound == set(control.MATVEC_USERS)
+    before = [(m, a, vars(m)[a]) for m in mods for a in ("mv", "mtv")
+              if a in vars(m)]
+    mv, mtv = control.MATVECS["mv_reordered"]
+    with control.matvec_swapped(mv, mtv):
+        assert all(vars(m)[a] is (mv if a == "mv" else mtv)
+                   for m, a, _ in before)
+    assert all(vars(m)[a] is f for m, a, f in before)
+
+    cell = harness.load_cell(tiny_spec[0], "warmup-sweep",
+                             bench_dir=tiny_spec[1])
+    lines = control.flips(cell, 2 ** 31 + 13, "cpu")
+    assert [r["variant"] for r in lines] == ["program", *control.MATVECS]
+    for r in lines:
+        assert r["lanes"] == harness.JUDGED_CALLS * TINY and r["correct"]
+    for r in lines[1:]:
+        assert r["uncertified_program"] == lines[0]["uncertified"]
+        assert r["uncertified"] - r["uncertified_program"] == \
+            r["certified_by_program_only"] - r["certified_by_variant_only"]
+    assert all(vars(m)[a] is f for m, a, f in before)

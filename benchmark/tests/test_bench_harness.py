@@ -1,13 +1,19 @@
 """The harness: cells, mixes and metrics found by name; the rate over
 whole calls; the result line's shape."""
 
+import dataclasses
+import io
 import json
+import re
+import sys
 import time
 
 import pytest
 import torch
 
 from benchmark import harness
+
+from conftest import TINY
 
 
 def run(spec, bench, workload="warmup-sweep", seconds=0.0, trace=False,
@@ -129,3 +135,119 @@ def test_run_refuses_without_a_card(tmp_path):
                        capture_output=True, text=True, timeout=120,
                        cwd=tmp_path)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+class _Clock:
+    """The window's clock in the tests below: each call of the program
+    takes ``pause`` seconds of it, so every window holds a known number
+    of calls however fast the CPU runs them."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
+_PROGRAM_CALL = harness.Program.__call__
+
+
+def _paced(monkeypatch, pause, fault=None):
+    """The program with each call taking ``pause`` seconds of the
+    harness's clock, and ``fault(call, sol)`` applied to call ``call``
+    (call 0 warms up); returns the list of calls made."""
+    clock = _Clock()
+    monkeypatch.setattr(harness, "time", clock)
+    made = []
+
+    def paced(self, g):
+        call = len(made)
+        made.append(call)
+        sol = _PROGRAM_CALL(self, g)
+        clock.now += pause
+        return sol if fault is None else fault(call, sol)
+
+    monkeypatch.setattr(harness.Program, "__call__", paced)
+    return made
+
+
+def _uncertify(calls, lanes):
+    """A fault: ``lanes`` of each call in ``calls`` left uncertified."""
+    def fault(call, sol):
+        if call not in calls:
+            return sol
+        ret = sol.ret.clone()
+        ret[lanes] = 100
+        return dataclasses.replace(sol, ret=ret)
+    return fault
+
+
+def _window_calls(made):
+    return len(made) - 1
+
+
+def run_paced(spec, bench, seconds, log=sys.stderr):
+    """A run on the paced clock, which starts at 0."""
+    return harness.run(spec, "warmup-sweep", 2 ** 31 + 5, seconds, False,
+                       "cpu", 0.0, bench_dir=bench, log=log)
+
+
+def test_a_fast_and_a_slow_tree_are_judged_on_the_same_calls(
+        tiny_spec, monkeypatch):
+    # Lane 3 of every odd call uncertified: calls 1, 3, ..., 11 of the
+    # judged twelve, more beyond them.
+    fault = _uncertify(range(1, 100, 2), [3])
+    fast = _paced(monkeypatch, 0.1, fault)
+    quick = run_paced(*tiny_spec, 1.75)
+    slow = _paced(monkeypatch, 1.0, fault)
+    late = run_paced(*tiny_spec, 1.75)
+    assert _window_calls(fast) == 18 and _window_calls(slow) == 12
+    assert quick["attempted"] == late["attempted"] \
+        == harness.JUDGED_CALLS * TINY
+    assert quick["failed"] == late["failed"] == 6
+    # The whole window is still judged: 9 of 18 * 64 lanes.
+    assert quick["checks"]["uncertified_pct"]["value"] \
+        == pytest.approx(100 * 9 / (18 * TINY))
+    assert late["checks"]["uncertified_pct"]["value"] \
+        == pytest.approx(100 * 6 / (12 * TINY))
+
+
+def test_a_window_too_slow_for_the_judged_calls_runs_on_to_them(
+        tiny_spec, monkeypatch):
+    made = _paced(monkeypatch, 1.0)
+    result = run_paced(*tiny_spec, 2.0)
+    assert _window_calls(made) == harness.JUDGED_CALLS
+    assert result["attempted"] == harness.JUDGED_CALLS * TINY
+    certified = harness.JUDGED_CALLS * TINY - result["failed"]
+    assert result["metrics"]["certified_per_s"]["value"] \
+        == pytest.approx(certified / harness.JUDGED_CALLS)
+
+
+@pytest.mark.parametrize("call,judged", [(1, True), (13, False)])
+def test_a_lane_uncertified_counts_as_failed_only_in_a_judged_call(
+        tiny_spec, monkeypatch, call, judged):
+    _paced(monkeypatch, 0.1)
+    clean = run_paced(*tiny_spec, 1.45)
+    made = _paced(monkeypatch, 0.1, _uncertify({call}, [7]))
+    log = io.StringIO()
+    faulty = run_paced(*tiny_spec, 1.45, log=log)
+    assert _window_calls(made) == 15
+    assert faulty["attempted"] == clean["attempted"]
+    assert faulty["failed"] == clean["failed"] + judged
+    # The whole window's count has the lane either way.
+    whole = re.search(r"every call: (\d+) of (\d+) lanes certified",
+                      log.getvalue())
+    assert int(whole[2]) - int(whole[1]) == 1 + round(
+        clean["checks"]["uncertified_pct"]["value"] * 15 * TINY / 100)
+    assert faulty["checks"]["uncertified_pct"]["value"] == pytest.approx(
+        clean["checks"]["uncertified_pct"]["value"] + 100 / (15 * TINY))
+
+
+def test_half_a_batch_dropped_after_the_judged_calls_is_not_correct(
+        tiny_spec, monkeypatch):
+    _paced(monkeypatch, 0.1, _uncertify({13}, slice(TINY // 2, None)))
+    result = run_paced(*tiny_spec, 1.45)
+    assert result["failed"] == 0
+    check = result["checks"]["uncertified_pct"]
+    assert check["value"] > check["limit"]
+    assert result["correct"] is False
