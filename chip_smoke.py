@@ -35,6 +35,15 @@ Phases, each printing one line with its seconds:
    the host microseconds per call (``perf_counter`` over 200 calls, then
    one ``synchronize``) of the checked call and of the solver's per-solve
    launcher (``prng.perturbation``);
+   Then the batched matvec (``ops.linalg.mv``/``mtv``, the kernel of
+   ``csrc/matvec.cu``) at each (m, n, direction) of ``MATVEC_SHAPES``, the
+   cells' shapes, at B = ``MATVEC_B``: bitwise equality with
+   ``torch.matmul`` on random and pair-probe inputs (required), the
+   kernel's device time flushed and warm beside its bound (A, the vector
+   and the output moved once at 3.35 TB/s), the plain version's
+   (``mv_plain``/``mtv_plain``, the ``torch.matmul`` the wrapper runs
+   elsewhere) and a direct ``torch.matmul`` call's, and the host
+   microseconds of a call at B = 4096, kernel and plain;
 4. main: the warm-up fleet (64 ``random_lcqp(nV=8, nC=2, nComp=2)``
    instances tiled to B = 4096, bench.py's headline configuration) through
    ``solve_batch_mixed(..., max_iterations=200, n_corrector_iters=6,
@@ -89,11 +98,14 @@ Phases, each printing one line with its seconds:
    bitwise against its plain version; every (B, n) the perturbation
    kernel was launched at there (``prng.launch_shapes``: retries, slices,
    one-instance calls) and not held in phase 3, held bitwise against the
-   plain version in both types as there.
+   plain version in both types as there; every (B, m, n, direction) the
+   matvec kernel was launched at there (``linalg.matvec_launch_shapes``)
+   and not held in phase 3c, held bitwise against ``torch.matmul`` as
+   there.
 
 Each path of phases 6-8 prints its wall seconds, certified lanes, stages, mean
-iterations, the GJ kernel's launches by matrix order and the perturbation
-kernel's launches, the resolved KKT form
+iterations, the GJ kernel's launches by matrix order, the perturbation
+kernel's and the matvec kernel's launches, the resolved KKT form
 and the f64 audit (``lcqpow_tpu_torch.audit_solution``), and raises when
 the certified lanes fall below the JAX package's count (``PATHS``), when
 the audit fails (on the circle: when a certified lane lies outside its
@@ -235,6 +247,11 @@ EXAMPLE_SCRIPTS = {
 # (50 MB on an H100): 256 MiB of float32.
 FLUSH_FLOATS = 64 * 2 ** 20
 PTXAS_ORDERS = (8, 14, 32, 33, 40, 42, 48)
+# The batched matvec at the benchmark cells' shapes and width: (m, n,
+# transposed), mv of A (B, m, n) or mtv.
+MATVEC_SHAPES = [(2, 8, False), (8, 8, False), (14, 8, False),
+                 (14, 8, True), (14, 14, False)]
+MATVEC_B = 262144
 
 
 def phase(name, t0, msg):
@@ -257,20 +274,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, kernel=None, flush=None, tries=3):
+def device_ms(fn, reps, kernel=None, flush=None, tries=8):
     """Mean device milliseconds per call, summed by ``torch.profiler`` over
     ``reps`` calls: the time of every kernel the call launches or, given
     ``kernel``, of the kernels whose name holds it.  Given ``flush``,
     ``flush()`` runs before every call and ``kernel`` keeps its time out.
     A trace with no such device time, or given ``kernel`` with another
     count of its launches than ``reps`` (the profiler dropped events: seen
-    once in several hundred traces, and a partial loss reads low), is
-    taken again, up to ``tries`` times."""
+    once in several hundred traces on some machines, in most runs of the
+    smoke on others, and a partial loss reads low), is taken again, up to
+    ``tries`` times; the error names what each trace held."""
     from torch.profiler import ProfilerActivity, profile
 
     assert flush is None or kernel is not None
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -287,8 +306,9 @@ def device_ms(fn, reps, kernel=None, flush=None, tries=3):
                 launches += e.count
         if us > 0.0 and (kernel is None or launches == reps):
             return us / reps / 1e3
+        seen.append((launches, round(us, 3)))
     raise AssertionError(f"the profiler recorded no full trace in {tries} "
-                         "traces")
+                         f"traces of {reps} calls (launches, us): {seen}")
 
 
 def bound_ms(B, m):
@@ -437,6 +457,73 @@ def check_wide_ptxas(usage, orders):
         raise AssertionError(f"the wide GJ kernel spills: {wide}")
 
 
+def matvec_ptxas(log):
+    """(kernel, m, n, transposed) -> (registers, spill stores, spill loads)
+    of the matvec kernels from nvcc's ``-Xptxas -v`` output: the
+    one-thread-a-lane kernel at (2, 8), the tiled kernel at every other
+    shape of ``MATVEC_SHAPES``."""
+    def key_of(mangled):
+        name = re.search(r"(matvec_(?:lane_)?kernel)ILi(\d+)ELi(\d+)E"
+                         r"(?:Lb([01])E)?", mangled)
+        return (name.group(1), int(name.group(2)), int(name.group(3)),
+                name.group(4) == "1") if name else None
+    usage = ptxas_entries(log, key_of)
+    want = [("matvec_lane_kernel" if s == (2, 8, False) else "matvec_kernel",
+             *s) for s in MATVEC_SHAPES]
+    if sorted(usage) != sorted(want) or None in sum(usage.values(), []):
+        raise AssertionError(f"no full ptxas report of the matvec kernels: "
+                             f"{usage}")
+    return usage
+
+
+def matvec_bound_ms(B, m, n, trans):
+    """Least device time of one batched matvec: A, the vector and the
+    output each moved once at the HBM rate."""
+    k, r = (m, n) if trans else (n, m)
+    return B * (m * n + k + r) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def hold_matvec(linalg, B, m, n, trans, seed):
+    """Raise unless ``mv``/``mtv`` gives ``torch.matmul``'s bits on random
+    operands (spread exponents, +-0) and on pair probes (+-2^30 among ones,
+    which show the sums' grouping); returns the random operands and the
+    largest absolute difference from ``torch.matmul`` (0 when the bits
+    agree)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = m if trans else n
+
+    def draw(shape):
+        e = torch.randint(-10, 11, shape, generator=g, device="cuda")
+        x = (torch.rand(shape, generator=g, device="cuda") + 1) * torch.exp2(
+            e.float())
+        x = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.5,
+                        -x, x)
+        zero = torch.rand(shape, generator=g, device="cuda") < 1 / 16
+        return torch.where(zero, x * 0.0, x)
+    fn, plain = ((linalg.mtv, linalg.mtv_plain) if trans
+                 else (linalg.mv, linalg.mv_plain))
+    A, v = draw((B, m, n)), draw((B, k))
+    cases = [(A, v)]
+    for i, j in [(0, 1), (0, k - 1), (1, k // 2), (3, 7)]:
+        P = torch.ones(B, m, n, device="cuda")
+        if trans:
+            P[:, i, :], P[:, j, :] = 2.0 ** 30, -(2.0 ** 30)
+        else:
+            P[:, :, i], P[:, :, j] = 2.0 ** 30, -(2.0 ** 30)
+        cases.append((P, torch.ones(B, k, device="cuda")))
+    err = 0.0
+    for a, x in cases:
+        before = linalg.matvec_launch_count
+        got, want = fn(a, x), plain(a, x)
+        torch.cuda.synchronize()
+        if linalg.matvec_launch_count != before + 1 or not same_bits(
+                got, want):
+            raise AssertionError(f"matvec (B={B}, m={m}, n={n}, "
+                                 f"trans={trans}): not torch.matmul's bits")
+        err = max(err, float((got - want).abs().max()))
+    return A, v, err
+
+
 def same_bits(K, P):
     """Equal values and equal bit patterns (-0 is not +0)."""
     return bool(torch.equal(K, P)) and bool(
@@ -508,24 +595,28 @@ def strict_audit_failures(lt, data, sol, opts):
 
 
 def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
-    """Drive one path with the kernel's counts set to 0 just before and
+    """Drive one path with the kernels' counts set to 0 just before and
     read just after; print and check its outcome (see ``PATHS``) and
-    return it.  With no ``audit_ceiling`` the f64 audit is the strict
+    return it, with the matvec kernel's launches (``matvec_launches``,
+    not pinned).  With no ``audit_ceiling`` the f64 audit is the strict
     one."""
     import lcqpow_tpu_torch as lt
     from lcqpow_tpu_torch import prng
     from lcqpow_tpu_torch.mixed import _resolve_kkt_form
     from lcqpow_tpu_torch.ops import gj_inverse as gj
+    from lcqpow_tpu_torch.ops import linalg
 
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     gj.launch_count = 0
     gj.launch_counts.clear()
     prng.launch_count = 0
+    linalg.matvec_launch_count = 0
     t1 = time.perf_counter()
     sol = solve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
+    mv_launches = linalg.matvec_launch_count
     got = path_outcome(sol)
     aud = lt.audit_solution(data, sol, opts)
     print(f"[{name}] B={sol.ret.shape[0]} wall_s={wall:.3f} outcome={got} "
@@ -534,6 +625,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
           f"{float(sol.stats.subproblem_iter.float().mean()):.4f} "
           f"gj_launches={gj.launch_count} "
           f"threefry_launches={prng.launch_count} "
+          f"matvec_launches={mv_launches} "
           f"kkt_form={_resolve_kkt_form(data, opts).admm.kkt_form} "
           f"audit={aud}", flush=True)
     if not bool(torch.isfinite(sol.x[sol.ret == 0]).all()):
@@ -568,7 +660,7 @@ def run_path(name, solve, data, opts, floor, pinned, audit_ceiling=None):
     if got != pinned:
         raise AssertionError(f"{name}: {got}, pinned {pinned}")
     phase(name, t0, f"certified={got['certified']}")
-    return got
+    return dict(got, matvec_launches=mv_launches)
 
 
 def circle_oracle(x):
@@ -820,6 +912,43 @@ def run_api(lt, main_sol, opts, main_stages):
     phase("api", t_phase, "ok")
 
 
+def matvec_phase(linalg, l2):
+    """Phase 3c: each shape of ``MATVEC_SHAPES`` at ``MATVEC_B`` held
+    bitwise, then timed; one ``[matvec]`` line each.  Returns the rows."""
+    rows = {}
+    for m, n, trans in MATVEC_SHAPES:
+        A, v, err = hold_matvec(linalg, MATVEC_B, m, n, trans, seed=m + n)
+        if trans:
+            fn = lambda: linalg.mtv(A, v)
+            plain = lambda: linalg.mtv_plain(A, v)
+            library = lambda: torch.matmul(v[:, None, :], A)
+        else:
+            fn = lambda: linalg.mv(A, v)
+            plain = lambda: linalg.mv_plain(A, v)
+            library = lambda: torch.matmul(A, v[:, :, None])
+        ms = device_ms(fn, 50, kernel="matvec_", flush=l2.zero_)
+        warm_ms = device_ms(fn, 50, kernel="matvec_")
+        plain_ms = device_ms(plain, 20)
+        lib_ms = device_ms(library, 20)
+        bound = matvec_bound_ms(MATVEC_B, m, n, trans)
+        A4, v4 = A[:4096], v[:4096]
+        host = host_us(lambda: (linalg.mtv if trans else linalg.mv)(A4, v4))
+        host_plain = host_us(lambda: (linalg.mtv_plain if trans
+                                      else linalg.mv_plain)(A4, v4))
+        rows[(m, n, trans)] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bound,
+                                   host_us=host, max_abs_err=err)
+        print(f"[matvec] {'mtv' if trans else 'mv'} B={MATVEC_B} m={m} n={n} "
+              f"bitwise=True device_ms: kernel={ms:.5f} (L2 flushed) "
+              f"kernel_l2_warm={warm_ms:.5f} plain={plain_ms:.5f} "
+              f"torch_matmul={lib_ms:.5f} bound={bound:.6g} (bytes) "
+              f"share_of_bound={bound / ms:.3f} "
+              f"warm_share={bound / warm_ms:.3f} max_abs_err={err:.3e}; "
+              f"host_us_per_call (B=4096): kernel={host:.2f} "
+              f"plain={host_plain:.2f}", flush=True)
+    return rows
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -828,6 +957,7 @@ def main():
     import lcqpow_tpu_torch as lt
     from lcqpow_tpu_torch import _build, prng
     from lcqpow_tpu_torch.ops import gj_inverse as gj
+    from lcqpow_tpu_torch.ops import linalg
     from lcqpow_tpu_torch.problems import circle_fleet, warm_up, warmup_fleet
 
     # 1. device
@@ -859,6 +989,10 @@ def main():
             paths["threefry"].with_suffix(".log").read_text()).items()):
         print(f"[ptxas] perturb_apply_kernel<{dict(f='float', d='double')[t]}>"
               f" registers={regs} spill_stores={st} spill_loads={ld}")
+    for (name, m, n, trans), (regs, st, ld) in sorted(matvec_ptxas(
+            paths["matvec"].with_suffix(".log").read_text()).items()):
+        print(f"[ptxas] {name}<{m},{n},{'mtv' if trans else 'mv'}> "
+              f"registers={regs} spill_stores={st} spill_loads={ld}")
     phase("build", t0, f"nvcc_seconds={_build.last_build_seconds:.3f} "
           f"libs={sorted(p.name for p in paths.values())}")
 
@@ -921,6 +1055,12 @@ def main():
     phase("threefry", t0, f"shapes={len(THREEFRY_SHAPES)} "
           f"dtypes={len(THREEFRY_DTYPES)} bitwise=True")
 
+    # 3c. the batched matvec vs torch.matmul
+    t0 = time.perf_counter()
+    mv_rows = matvec_phase(linalg, l2)
+    phase("matvec", t0, f"shapes={len(MATVEC_SHAPES)} B={MATVEC_B} "
+          f"bitwise=True")
+
     # 4. main path
     t0 = time.perf_counter()
     opts = lt.Options(print_level=lt.PrintLevel.NONE, max_iterations=200)
@@ -934,9 +1074,11 @@ def main():
     gj.launch_count = 0
     gj.launch_counts.clear()
     prng.launch_count = 0
+    linalg.matvec_launch_count = 0
     # Every shape the driven paths (phases 4-9) launch the kernels at.
     prng.launch_shapes.clear()
     gj.launch_shapes.clear()
+    linalg.matvec_launch_shapes.clear()
     t1 = time.perf_counter()
     sol = lt.solve_batch_mixed(data, opts, key=key, n_corrector_iters=6,
                                escalate=1)
@@ -945,6 +1087,7 @@ def main():
     launches = gj.launch_count
     launches_by_m = dict(sorted(gj.launch_counts.items()))
     tf_launches = prng.launch_count
+    mv_launches = linalg.matvec_launch_count
     ret = sol.ret.cpu().numpy()
     certified = int((ret == 0).sum())
     stages = {int(k): int(v) for k, v in zip(*torch.unique(
@@ -969,12 +1112,13 @@ def main():
           f"iter_total_sum={got['iter_total_sum']} corrector_steps_sum="
           f"{got['corrector_steps_sum']} "
           f"gj_launches={launches} gj_launches_by_m={launches_by_m} "
-          f"threefry_launches={tf_launches} "
+          f"threefry_launches={tf_launches} matvec_launches={mv_launches} "
           f"audit_max_phi={max_phi:.3e} "
           f"audit_max_violation={max_viol:.3e}", flush=True)
-    if not (launches and tf_launches):
+    if not (launches and tf_launches and mv_launches):
         raise AssertionError(f"main path: a kernel was not launched (GJ "
-                             f"{launches}, Threefry {tf_launches})")
+                             f"{launches}, Threefry {tf_launches}, matvec "
+                             f"{mv_launches})")
     if got != MAIN_EXPECTED:
         raise AssertionError(f"main path: {got}, expected {MAIN_EXPECTED}")
     if not (max_phi <= opts.complementarity_tolerance and max_viol <= 1e-9):
@@ -1005,7 +1149,7 @@ def main():
     phase("reference", t0, "ok")
 
     # 6.-8. the PAS paths and the circle paths
-    by_path = {"main": got}
+    by_path = {"main": dict(got, matvec_launches=mv_launches)}
     pas_opts = opts.replace(inner_solver="pas")
     fleet = warmup_fleet(PAS_MIXED_B)
     by_path["pas-mixed-1024"] = run_path("pas-mixed-1024",
@@ -1034,7 +1178,7 @@ def main():
     # 9. the reference-compatible surface
     run_api(lt, sol, opts, MAIN_EXPECTED["stages"])
 
-    # 10. both kernels at every other shape the paths launched them at
+    # 10. the kernels at every other shape the paths launched them at
     t0 = time.perf_counter()
     driven = sorted(gj.launch_shapes)
     late = [s for s in driven if s not in KERNEL_SHAPES]
@@ -1050,6 +1194,16 @@ def main():
             hold_threefry(prng, B, n, dtype)
     phase("threefry-driven", t0, f"driven_shapes={driven} "
           f"held_now={late} bitwise=True")
+    t0 = time.perf_counter()
+    driven = sorted(linalg.matvec_launch_shapes)
+    late = [s for s in driven
+            if not (s[0] == MATVEC_B and s[1:] in MATVEC_SHAPES)]
+    mv_err = max(r["max_abs_err"] for r in mv_rows.values())
+    for B, m, n, trans in late:
+        mv_err = max(mv_err, hold_matvec(linalg, B, m, n, trans,
+                                         seed=B + m + n)[2])
+    phase("matvec-driven", t0, f"driven_shapes={driven} held_now={late} "
+          f"bitwise=True max_abs_err={mv_err:.3e}")
 
     main_row = rows[(4096, 14)]
     tf_row = tf_rows[(4096, 8, torch.float32)]
@@ -1057,6 +1211,7 @@ def main():
     gj_by_path = {k: sum(v["launches_by_m"].values())
                   for k, v in by_path.items()}
     tf_by_path = {k: v["threefry_launches"] for k, v in by_path.items()}
+    mv_by_path = {k: v["matvec_launches"] for k, v in by_path.items()}
     print(json.dumps({"kernels": [{
         "name": "gj_inverse",
         "route": "cuda",
@@ -1092,6 +1247,24 @@ def main():
         "shape": [4096, 8],
         "dtype": "float32",
         "launches_by_path": tf_by_path,
+    }, {
+        "name": "matvec",
+        "route": "cuda",
+        "source": "lcqpow_tpu_torch/csrc/matvec.cu",
+        # No pallas_call: the batched A @ x that XLA runs for the JAX
+        # package (vmap), which the port sent to cuBLAS gemv.
+        "replaces": None,
+        "launches": mv_launches,
+        "max_abs_err": mv_err,
+        "ms": mv_rows[(14, 14, False)]["ms"],
+        "plain_ms": mv_rows[(14, 14, False)]["plain_ms"],
+        "bound_ms": mv_rows[(14, 14, False)]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": mv_rows[(14, 14, False)]["library_ms"],
+        "shape": [MATVEC_B, 14, 14],
+        "launches_by_path": mv_by_path,
+        "by_shape": {f"{'mtv' if t else 'mv'}_{m}x{n}": r
+                     for (m, n, t), r in mv_rows.items()},
     }]}))
     print(f"[total] seconds={time.perf_counter() - t_all:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {

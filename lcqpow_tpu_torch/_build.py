@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 #: Library name -> its sources under ``csrc/``.
-LIBRARIES = {"gj": ["gj_inverse.cu"], "threefry": ["threefry.cu"]}
+LIBRARIES = {"gj": ["gj_inverse.cu"], "threefry": ["threefry.cu"],
+             "matvec": ["matvec.cu"]}
 
 _lock = threading.Lock()
 _loaded: dict = {}

@@ -297,3 +297,48 @@ def test_hold_threefry_on_cpu(B, n):
             assert torch.signbit(head[0]) and head[0] == 0
             tiny = torch.finfo(dtype).smallest_normal
             assert 0 < abs(float(xk.view(-1)[6])) < tiny
+
+
+def _matvec_entry(mangled, regs, spills=0):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spills} bytes spill stores, "
+            f"{spills} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+def test_matvec_ptxas_reads_every_matvec_kernel():
+    pre = "_ZN38_GLOBAL__N__bd312f89_9_matvec_cu_4e0a078813"
+    tiled = [(m, n, t) for m, n, t in chip_smoke.MATVEC_SHAPES
+             if (m, n) != (2, 8)]
+    log = "".join(
+        _matvec_entry(f"{pre}matvec_kernelILi{m}ELi{n}ELb{int(t)}EEEvPKfS2_"
+                      f"Pfixxxxiii", 40 + m)
+        for m, n, t in tiled)
+    lane = f"{pre[:-2]}18matvec_lane_kernelILi2ELi8EEEvPKfS2_Pfiiii"
+    usage = chip_smoke.matvec_ptxas(log + _matvec_entry(lane, 32))
+    assert usage[("matvec_kernel", 14, 8, True)] == [54, 0, 0]
+    assert usage[("matvec_kernel", 14, 8, False)] == [54, 0, 0]
+    assert usage[("matvec_lane_kernel", 2, 8, False)] == [32, 0, 0]
+    assert len(usage) == len(chip_smoke.MATVEC_SHAPES)
+    # A report without the one-thread-a-lane kernel is not a full report,
+    # nor is one with a tiled kernel at (2, 8), which the library no
+    # longer builds.
+    with pytest.raises(AssertionError, match="no full"):
+        chip_smoke.matvec_ptxas(log)
+    extra = _matvec_entry(f"{pre}matvec_kernelILi2ELi8ELb0EEEvPKfS2_"
+                          f"Pfixxxxiii", 42)
+    with pytest.raises(AssertionError, match="no full"):
+        chip_smoke.matvec_ptxas(log + extra + _matvec_entry(lane, 32))
+
+
+def test_matvec_bound_moves_each_byte_once():
+    # (B, 14, 8) mv: 112 matrix floats, 8 vector floats and 14 outputs a
+    # lane; mtv: 14 vector floats and 8 outputs.  The same bytes either way.
+    B = chip_smoke.MATVEC_B
+    want = B * (112 + 8 + 14) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert chip_smoke.matvec_bound_ms(B, 14, 8, False) == pytest.approx(want)
+    assert chip_smoke.matvec_bound_ms(B, 14, 8, True) == pytest.approx(want)
+    assert chip_smoke.matvec_bound_ms(B, 2, 8, False) == pytest.approx(
+        B * (16 + 8 + 2) * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3)
