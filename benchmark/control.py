@@ -32,7 +32,7 @@ f32 one (:func:`certificate_gaps`), the rounding that
 ``--flips`` measures instead how many lanes change certification when
 only the order or the precision of the sums of the program's batched
 matvec changes (:data:`MATVECS`): for each seed, over the fleets of a
-run's ``harness.JUDGED_CALLS`` judged calls, the program and then each
+run's judged calls (``harness.judged_calls``), the program and then each
 variant, with ``ops.linalg``'s ``mv`` and ``mtv`` swapped at run time in
 every module of the program that binds them (:data:`MATVEC_USERS`) and
 put back afterwards.  One JSON line a seed and side: the lanes left
@@ -63,7 +63,7 @@ from .fleet import Fleet  # noqa: E402
 
 
 def variants(program: harness.Program) -> dict:
-    """name -> ``solve(g)`` of the program and of each control."""
+    """name -> ``solve(g, x0=None)`` of the program and of each control."""
     lt = program.lt
     from lcqpow_tpu_torch.mixed import _predictor_options
 
@@ -73,13 +73,15 @@ def variants(program: harness.Program) -> dict:
     data32 = data.map(lambda a: a.to(torch.float32))
     no_corr = dict(program.kwargs, n_corrector_iters=0)
 
-    def f32_predictor(g):
+    def f32_predictor(g, x0=None):
         d = dataclasses.replace(data32, g=g.to(torch.float32))
-        return lt.solve_batch(d, pred_options)
+        return lt.solve_batch(d, pred_options, x0=None if x0 is None
+                              else x0.to(torch.float32))
 
-    def no_corrector(g):
+    def no_corrector(g, x0=None):
         d = dataclasses.replace(data, g=g)
-        return getattr(lt, program.entry)(d, program.options, **no_corr)
+        return getattr(lt, program.entry)(d, program.options, x0=x0,
+                                          **no_corr)
 
     return {"program": program, "f32_predictor": f32_predictor,
             "no_corrector": no_corrector}
@@ -231,18 +233,18 @@ def flips(cell: harness.Cell, seed: int, device) -> list[dict]:
     program = harness.Program(cell.config["solver"], fleet)
     guarantees = cell.config["guarantees"]
     limits = harness.limits(cell.config)
-    calls = range(1, harness.JUDGED_CALLS + 1)
+    calls = range(1, harness.judged_calls(cell.traffic) + 1)
 
     def side(name):
         t0 = time.perf_counter()
         certified, readings, digest = [], [], hashlib.sha256()
         for call in calls:
-            g = fleet.g(call)
-            sol = program(g)
+            inputs = fleet.draw(call)
+            sol = program(**inputs)
             certified.append(sol.ret == 0)
             digest.update(sol.ret.cpu().numpy().tobytes())
-            readings.append(reference.check_call(fleet, g, sol.x, sol.y,
-                                                 sol.ret, guarantees))
+            readings.append(reference.check_call(fleet, inputs["g"], sol.x,
+                                                 sol.y, sol.ret, guarantees))
         numbers = reference.combine(readings)
         numbers.update(
             variant=name, seed=seed, calls=len(calls),
@@ -279,12 +281,13 @@ def read(cell: harness.Cell, seed: int, name: str, calls: int,
     out, replays = [], []
     t0 = time.perf_counter()
     for call in range(1, calls + 1):
-        g = fleet.g(call)
-        sol = solve(g)
-        out.append(reference.check_call(fleet, g, sol.x, sol.y, sol.ret,
-                                        cell.config["guarantees"]))
+        inputs = fleet.draw(call)
+        sol = solve(**inputs)
+        out.append(reference.check_call(fleet, inputs["g"], sol.x, sol.y,
+                                        sol.ret, cell.config["guarantees"]))
         if gaps and name == "program":
-            replays.append(certificate_gaps(program, g, sol, stat_tol))
+            replays.append(certificate_gaps(program, inputs["g"], sol,
+                                            stat_tol))
     numbers = reference.combine(out)
     for k in ("gap_u2", "gap_tol", "rho_term_share", "rho_max",
               "replay_ratio"):

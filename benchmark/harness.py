@@ -2,16 +2,18 @@
 verdict, and the metrics, all found by name from ``BENCHMARK.json``.
 
 A cell names a configuration (``configs/<name>.json`` through its
-``file``: the problem family, the program's entry and options, the
-guarantees a certified lane carries and the limits of the check), a
-traffic mix (``traffic/<name>.json``: lanes a call, one caller, closed
-loop) and its metrics (``metrics/<name>.py``: one reader each).  Adding a
-cell, a mix or a metric adds files and entries and edits none.
+``file``: the problem family, found as ``families/<family>.py``, the
+program's entry and options, the guarantees a certified lane carries and
+the limits of the check), a traffic mix (``traffic/<name>.json``: lanes a
+call, one caller, closed loop, and optionally ``judged_calls``) and its
+metrics (``metrics/<name>.py``: one reader each).  Adding a cell, a
+family, a mix or a metric adds files and entries and edits none.
 
 The window calls the program's entry back to back, each call on a fresh
-fleet (:class:`fleet.Fleet`) and ending in a device synchronisation, until
-``seconds`` have passed and at least ``JUDGED_CALLS`` calls have been made,
-and lets the last call finish.  With ``trace`` the window is at most
+draw of the fleet (:class:`fleet.Fleet`) and ending in a device
+synchronisation, until ``seconds`` have passed and at least the mix's
+judged calls (:func:`judged_calls`) have been made, and lets the last call
+finish.  With ``trace`` the window is at most
 ``TRACE_CALLS`` calls under the profiler, with a ``record_function`` range
 around each call and around each entry into the program that a metric
 names (``SPANS``), and the per-layer metrics are read from those calls.
@@ -20,10 +22,9 @@ program's state is freed and :mod:`reference` judges every call's result.
 
 Which calls each number covers: ``correct`` and every number under
 ``checks``, the end-to-end rate and the per-layer metrics cover every call
-of the window; ``attempted`` and ``failed`` cover its first
-``JUDGED_CALLS`` calls (all of a traced window's), so that two trees run
-at one seed are counted on the same inputs however many calls each fits
-into the window.
+of the window; ``attempted`` and ``failed`` cover its first judged calls
+(all of a traced window's), so that two trees run at one seed are counted
+on the same inputs however many calls each fits into the window.
 """
 
 from __future__ import annotations
@@ -32,9 +33,7 @@ import contextlib
 import dataclasses
 import hashlib
 import importlib
-import importlib.util
 import json
-import re
 import subprocess
 import sys
 import time
@@ -44,24 +43,20 @@ import numpy as np
 import torch
 
 from . import devtrace, reference, roofline
-from .fleet import Fleet
+from .fleet import BENCH_DIR, Fleet, SpecError, load_file
 
-BENCH_DIR = Path(__file__).resolve().parent
 #: Calls of a traced window: enough for a median, few enough that the
 #: trace of the slowest cell is read in well under a minute.
 TRACE_CALLS = 3
-#: Calls whose lanes ``attempted`` and ``failed`` count: a fixed prefix of
-#: every window, so that a faster tree is counted on the same fleets as a
-#: slower one at the same seed, not on extra fleets only it reached.  A
-#: 51-s window at 262,144 lanes holds 13-15 calls; an untraced window runs
-#: on until it has made this many.
+#: Calls whose lanes ``attempted`` and ``failed`` count, where the traffic
+#: mix sets no ``judged_calls``: a fixed prefix of every window, so that a
+#: faster tree is counted on the same fleets as a slower one at the same
+#: seed, not on extra fleets only it reached.  A 51-s window at 262,144
+#: lanes holds 13-15 calls; an untraced window runs on until it has made
+#: this many.
 JUDGED_CALLS = 12
 #: Top-level module names that no run may load.
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "lcqpow_tpu"})
-
-
-class SpecError(ValueError):
-    """``BENCHMARK.json`` or a file it names is missing or malformed."""
 
 
 @dataclasses.dataclass
@@ -105,14 +100,16 @@ def load_reader(name: str, bench_dir: Path = BENCH_DIR):
     ``None``; optional ``COUNTERS`` (label -> dotted path of a count in the
     program) and ``SPANS`` (label -> (dotted path of a function of the
     program, ``"call"``, ``"range"`` or ``"factory"``))."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    if not path.exists():
-        raise SpecError(f"no reader {path}")
-    mod_name = "bench_metric_" + re.sub(r"\W", "_", name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_file("metrics", name, bench_dir)
+
+
+def judged_calls(traffic: dict) -> int:
+    """The mix's ``judged_calls``, or :data:`JUDGED_CALLS` where it sets
+    none."""
+    n = traffic.get("judged_calls", JUDGED_CALLS)
+    if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+        raise SpecError(f"judged_calls {n!r} is no whole number >= 1")
+    return n
 
 
 @dataclasses.dataclass
@@ -138,7 +135,7 @@ class Program:
     """The program's entry on one fleet: its problem data built once from
     the fleet's base instances (the program's own ``make_lcqp`` defaults),
     tiled over the lanes on the device; each call swaps in that call's
-    ``g``."""
+    ``g`` and passes the start ``x0`` where the fleet's draw gives one."""
 
     def __init__(self, solver: dict, fleet: Fleet):
         import lcqpow_tpu_torch as lt
@@ -158,9 +155,10 @@ class Program:
              for f in dataclasses.fields(lt.LCQPData)}, fleet.device)
         self.data = stacked.map(lambda a: a.index_select(0, fleet.instance))
 
-    def __call__(self, g: torch.Tensor):
+    def __call__(self, g: torch.Tensor, x0: torch.Tensor | None = None):
         data = dataclasses.replace(self.data, g=g)
-        return getattr(self.lt, self.entry)(data, self.options, **self.kwargs)
+        return getattr(self.lt, self.entry)(data, self.options, x0=x0,
+                                            **self.kwargs)
 
 
 def _sync(device: torch.device) -> None:
@@ -270,20 +268,21 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
 
     ``correct``, ``checks`` and the metrics cover every call of the window;
     ``attempted`` and ``failed`` the lanes, and the lanes left uncertified,
-    of its first ``JUDGED_CALLS`` calls.  Standard error gives both counts
-    and a digest of the judged calls' ``ret``."""
+    of its first :func:`judged_calls` calls.  Standard error gives both
+    counts and a digest of the judged calls' ``ret``."""
     device = torch.device(device)
     cell = load_cell(spec_path, workload, bench_dir)
     metrics = cell.per_layer if trace else cell.end_to_end
     readers = {m["name"]: load_reader(m["name"], bench_dir) for m in metrics}
     cfg = cell.config
     lanes = int(cell.traffic["lanes_per_call"])
+    judged_n = judged_calls(cell.traffic)
 
     t_in = time.perf_counter()
-    fleet = Fleet(cfg["problem"], lanes, seed, device)
+    fleet = Fleet(cfg["problem"], lanes, seed, device, bench_dir)
     program = Program(cfg["solver"], fleet)
     t_data = time.perf_counter()
-    program(fleet.g(0))
+    program(**fleet.draw(0))
     _sync(device)
     setup_s = time.perf_counter() - t0
     print(f"[{workload}] set-up {setup_s:.3f} s (to the harness "
@@ -304,12 +303,12 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
             start = time.perf_counter()
             call = 1
             while True:
-                g = fleet.g(call)
+                inputs = fleet.draw(call)
                 before = _read_counters(counter_paths) if trace else None
                 c0 = time.perf_counter()
                 with (torch.profiler.record_function(devtrace.CALL_RANGE)
                       if trace else contextlib.nullcontext()):
-                    sol = program(g)
+                    sol = program(**inputs)
                     _sync(device)
                 end = time.perf_counter()
                 walls.append(end - c0)
@@ -325,7 +324,7 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
                 if trace:
                     if end - start >= seconds or len(walls) >= TRACE_CALLS:
                         break
-                elif end - start >= seconds and len(walls) >= JUDGED_CALLS:
+                elif end - start >= seconds and len(walls) >= judged_n:
                     break
     finally:
         if restore is not None:
@@ -360,16 +359,16 @@ def run(spec_path: Path, workload: str, seed: int, seconds: float,
           f"walls {[round(w, 4) for w in walls]}", file=log, flush=True)
 
     # The program's state goes before the reference runs.
-    del program, ctx, solutions, sol, trace_obj, prof
+    del program, ctx, solutions, sol, inputs, trace_obj, prof
     readings = [reference.check_call(fleet, fleet.g(c), x, y, ret,
                                      cfg["guarantees"])
                 for c, x, y, ret in results]
     numbers = reference.combine(readings)
-    judged = reference.combine(readings[:JUDGED_CALLS])
+    judged = reference.combine(readings[:judged_n])
     digest = hashlib.sha256()
-    for r in results[:JUDGED_CALLS]:
+    for r in results[:judged_n]:
         digest.update(r[3].cpu().numpy().tobytes())
-    print(f"[{workload}] judged calls 1-{min(JUDGED_CALLS, len(results))}"
+    print(f"[{workload}] judged calls 1-{min(judged_n, len(results))}"
           f" of {len(results)}: {judged['lanes'] - judged['certified']} of "
           f"{judged['lanes']} lanes uncertified, ret sha256 "
           f"{digest.hexdigest()[:16]}", file=log, flush=True)

@@ -37,6 +37,11 @@ rows and ``F32_ROUNDING`` of the tolerance: a lane fails only where no
 rounding of the certificate's own precision explains the excess.  The
 plain ratio is reported beside it (``stationarity_raw``).
 
+The readings assume that the fields a family does not set keep the
+program's defaults: ``lbL = lbR = 0``, no upper bound on ``Lx`` or ``Rx``
+and no box.  A fleet whose family sets any field outside ``CHECKED`` is
+refused, not judged under the wrong bounds.
+
 Imports only torch and numpy (through :mod:`fleet`); nothing of the
 program.
 """
@@ -58,6 +63,8 @@ DF32_ROUNDING = 2.0 ** -42
 F32_ROUNDING = 2.0 ** -23
 #: A raw ratio above this counts as near its limit (``near``).
 NEAR = 0.999
+#: The LCQP fields a family may set for the readings to hold.
+CHECKED = frozenset({"Q", "g", "L", "R", "A", "lbA", "ubA"})
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -73,7 +80,12 @@ def _mtv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def check_call(fleet, g: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                ret: torch.Tensor, guarantees: dict) -> dict:
     """The float64 readings of one call's results against the data it was
-    given (``fleet`` with this call's ``g``)."""
+    given (``fleet`` with this call's ``g``).  Raises ``ValueError`` where
+    the fleet's family sets a field outside :data:`CHECKED`."""
+    unchecked = sorted(set(fleet.fields) - CHECKED)
+    if unchecked:
+        raise ValueError(f"the reference does not check {unchecked}: "
+                         f"it judges only {sorted(CHECKED)}")
     nV, nC, nK = fleet.nV, fleet.nC, fleet.nComp
     stat_tol = float(guarantees["stationarity_tolerance"])
     compl_tol = float(guarantees["complementarity_tolerance"])

@@ -24,6 +24,8 @@ def tiny_spec(tmp_path):
     bench = tmp_path / "bench"
     shutil.copytree(ROOT / "benchmark" / "configs", bench / "configs")
     shutil.copytree(ROOT / "benchmark" / "metrics", bench / "metrics")
+    shutil.copytree(ROOT / "benchmark" / "families", bench / "families",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "traffic").mkdir()
     (bench / "traffic" / "tiny.json").write_text(json.dumps(
         {"name": "tiny", "lanes_per_call": TINY, "loop": "closed",

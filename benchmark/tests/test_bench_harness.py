@@ -251,3 +251,27 @@ def test_half_a_batch_dropped_after_the_judged_calls_is_not_correct(
     check = result["checks"]["uncertified_pct"]
     assert check["value"] > check["limit"]
     assert result["correct"] is False
+
+
+def test_judged_calls_are_the_mixs_and_twelve_where_it_sets_none(
+        tiny_spec, monkeypatch):
+    spec_path, bench = tiny_spec
+    assert harness.judged_calls({}) == harness.JUDGED_CALLS == 12
+    for bad in (0, -1, 2.5, True, "3"):
+        with pytest.raises(harness.SpecError):
+            harness.judged_calls({"judged_calls": bad})
+    tiny = bench / "traffic" / "tiny.json"
+    tiny.write_text(json.dumps(dict(json.loads(tiny.read_text()),
+                                    judged_calls=3)))
+    fault = _uncertify(range(1, 100), [5])
+    slow = _paced(monkeypatch, 1.0, fault)
+    late = run_paced(spec_path, bench, 2.0)
+    fast = _paced(monkeypatch, 0.1, fault)
+    log = io.StringIO()
+    quick = run_paced(spec_path, bench, 1.75, log=log)
+    # A slow window runs on to the mix's three calls and no further; a
+    # fast one fills its seconds; both judge exactly calls 1-3.
+    assert _window_calls(slow) == 3 and _window_calls(fast) == 18
+    assert late["attempted"] == quick["attempted"] == 3 * TINY
+    assert late["failed"] == quick["failed"] == 3
+    assert "judged calls 1-3 of 18" in log.getvalue()

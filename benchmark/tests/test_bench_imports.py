@@ -31,7 +31,10 @@ def loaded(body: str) -> set:
 
 def test_reference_and_generator_load_nothing_of_the_program():
     mods = loaded("import benchmark.reference, benchmark.fleet, "
-                  "benchmark.devtrace, benchmark.roofline")
+                  "benchmark.devtrace, benchmark.roofline\n"
+                  "for p in (benchmark.fleet.BENCH_DIR / 'families')"
+                  ".glob('*.py'):\n"
+                  "    benchmark.fleet.load_file('families', p.stem)")
     assert not mods & {"lcqpow_tpu_torch", "lcqpow_tpu", "jax", "jaxlib",
                        "flax"}
 
